@@ -1,0 +1,205 @@
+"""LongTR-compatible command-line interface of the PyTorch port.
+
+Port of :mod:`longtr_tpu.cli`: the same parser (``build_parser``) and
+option mapping (``config_from_args``), which are free of JAX, and the same
+run.  The device comes from :func:`longtr_tpu_torch.device.select_device`:
+the first CUDA card when there is one, else the CPU.  Options whose code
+paths are not ported yet exit with an error that says so.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import sys
+
+from longtr_tpu.cli import build_parser, config_from_args
+from longtr_tpu.version import __version__
+from longtr_tpu_torch.device import select_device
+
+
+def _unported(args) -> str | None:
+    """The first option given that this package does not run yet."""
+    checks = (("--workers", args.workers > 1),
+              ("--distributed", args.distributed),
+              ("--jax-profile", bool(args.jax_profile)),
+              ("--stutter-align-len", args.stutter_align_len != 0),
+              ("--snp-vcf", bool(args.snp_vcf)),
+              ("--ref-vcf", bool(args.ref_vcf)))
+    return next((flag for flag, given in checks if given), None)
+
+
+def main(argv=None, device=None, pair_scorer=None):
+    """Run ``longtr``.  ``device`` (default: auto) and ``pair_scorer`` (a
+    replacement for the pair-HMM, used by chip_smoke.py's reference run)
+    are for programs that call this in-process; they are not options."""
+    try:
+        return _main(argv, device, pair_scorer)
+    except (OSError, ValueError, EOFError) as e:
+        # printErrorAndDie analog (error.h:6): clean message, nonzero exit.
+        # Set LONGTR_TRACEBACK=1 to see the full traceback when debugging.
+        if os.environ.get("LONGTR_TRACEBACK"):
+            raise
+        sys.exit(f"ERROR: {e}")
+    except Exception as e:
+        import struct
+        import zlib
+        if isinstance(e, (zlib.error, struct.error)):
+            if os.environ.get("LONGTR_TRACEBACK"):
+                raise
+            sys.exit(f"ERROR: corrupt or truncated input: {e}")
+        raise
+
+
+def _main(argv=None, device=None, pair_scorer=None):
+    if argv is None:
+        argv = sys.argv[1:]
+    args = build_parser().parse_args(argv)
+    flag = _unported(args)
+    if flag:
+        sys.exit(f"ERROR: {flag} is not yet ported to longtr_tpu_torch "
+                 "(use longtr_tpu's `longtr`)")
+    device = select_device(device)
+    if args.ref_fidelity:
+        from longtr_tpu.utils import mathops
+        mathops.set_ref_fidelity(True)
+    full_command = "LongTR-TPU-" + __version__ + " " + " ".join(argv)
+
+    if args.metrics_out:
+        d = os.path.dirname(args.metrics_out) or "."
+        if not os.path.isdir(d):
+            sys.exit(f"ERROR: Directory for --metrics-out does not exist: {d}")
+    if not args.bams and not args.bam_files:
+        sys.exit("ERROR: You must specify either the --bams or --bam-files option")
+    if args.bams and args.bam_files:
+        sys.exit("ERROR: You can only specify one of --bams or --bam-files")
+    if not args.skip_genotyping and not args.tr_vcf:
+        sys.exit("ERROR: --tr-vcf option required")
+    if args.tr_vcf and not args.tr_vcf.endswith(".gz"):
+        sys.exit("ERROR: Path for TR VCF output file must end in .gz")
+
+    bam_files = (args.bams.split(",") if args.bams else
+                 [ln.strip() for ln in open(args.bam_files) if ln.strip()])
+
+    if args.log:
+        log_fh = open(args.log, "w")
+    elif not sys.stderr.isatty():
+        # batch mode: a raw per-locus print to a piped stderr costs ~0.8ms
+        # in syscalls; buffer and flush at exit (content unchanged)
+        try:
+            log_fh = io.TextIOWrapper(
+                io.BufferedWriter(
+                    io.FileIO(sys.stderr.fileno(), "w", closefd=False),
+                    1 << 16),
+                line_buffering=False, write_through=False)
+        except (OSError, ValueError, io.UnsupportedOperation):
+            log_fh = sys.stderr
+    else:
+        log_fh = sys.stderr
+
+    def full_logger(*msgs):
+        if not args.silent:
+            print(*msgs, file=log_fh)
+
+    def sel_logger(*msgs):
+        if not (args.quiet or args.silent):
+            print(*msgs, file=log_fh)
+
+    from longtr_tpu.io.bam import BamMultiReader
+    reader = BamMultiReader(bam_files, args.fasta)
+    full_logger(f"Detected {len(bam_files)} BAM/CRAM files")
+    full_logger(f"Device: {device}")
+
+    # Read-group → sample/library maps (hipstr_main.cpp:461-516)
+    rg_to_sample = {}
+    rg_to_library = {}
+    rg_samples = set()
+    use_bam_rgs = not args.bam_samps
+    if args.bam_samps:
+        samps = args.bam_samps.split(",")
+        libs = (args.bam_libs.split(",") if args.bam_libs else
+                (samps if args.lib_from_samp else None))
+        if libs is None:
+            sys.exit("ERROR: --bam-libs option required when --bam-samps specified")
+        if len(samps) != len(bam_files) or len(libs) != len(bam_files):
+            sys.exit("ERROR: Number of BAM files and samples/libraries must match")
+        for path, s, l in zip(bam_files, samps, libs):
+            rg_to_sample[path] = s
+            rg_to_library[path] = l
+            rg_samples.add(s)
+    else:
+        for i, path in enumerate(bam_files):
+            rgs = reader.read_groups(i)
+            if not rgs:
+                sys.exit("ERROR: BAM files lack read groups and --bam-samps "
+                         "was not specified")
+            for rg in rgs:
+                if not rg.id or not rg.sample:
+                    sys.exit("ERROR: @RG lacks ID or SM tag")
+                lib = rg.sample if args.lib_from_samp else rg.library
+                if not args.lib_from_samp and not rg.library:
+                    sys.exit("ERROR: @RG lacks LB tag")
+                rg_to_sample[path + rg.id] = rg.sample
+                rg_to_library[path + rg.id] = lib
+                rg_samples.add(rg.sample)
+
+    cfg = config_from_args(args)
+    from longtr_tpu_torch.pipeline.processor import GenotyperPipeline
+    pipeline = GenotyperPipeline(cfg, use_bam_rgs, full_logger, sel_logger,
+                                 device=device, pair_scorer=pair_scorer)
+    if log_fh is not sys.stderr:
+        pipeline.log_flush = log_fh.flush
+
+    if args.viz_out:
+        if not args.viz_out.endswith(".gz"):
+            sys.exit("ERROR: Path for alignment visualization file must end "
+                     "in .gz as it will be bgzipped")
+        from longtr_tpu.io.bgzf import BgzfWriter
+        pipeline.viz_out = BgzfWriter(args.viz_out)
+    if args.pass_bam or args.filt_bam:
+        # hipstr_main.cpp:518-535: both writers share the merged input header.
+        from longtr_tpu.io.bam_write import BamWriter
+        hdr = reader.readers[0].header
+        if args.pass_bam:
+            pipeline.pass_bam = BamWriter(args.pass_bam, hdr.text,
+                                          hdr.ref_names, hdr.ref_lengths)
+        if args.filt_bam:
+            pipeline.filt_bam = BamWriter(args.filt_bam, hdr.text,
+                                          hdr.ref_names, hdr.ref_lengths)
+    if args.fam:
+        sys.exit("ERROR: --fam option only applies if --snp-vcf option "
+                 "has been specified as well")
+
+    if not args.skip_genotyping:
+        samples = cfg.sample_set & rg_samples if cfg.sample_set else rg_samples
+        pipeline.set_output_vcf(args.tr_vcf, samples)
+
+    shard = None
+    if args.shard:
+        sid, nsh = (int(x) for x in args.shard.split("/"))
+        shard = (sid, nsh, args.shard_mode)
+    if args.checkpoint:
+        pipeline.set_checkpoint(args.checkpoint)
+    try:
+        pipeline.process_regions(reader, args.regions, args.fasta,
+                                 rg_to_sample, rg_to_library, full_command,
+                                 max_regions=10_000_000, chrom=args.chrom,
+                                 shard=shard)
+        pipeline.finish()
+    finally:
+        if log_fh is not sys.stderr and not args.log:
+            log_fh.flush()
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fh:
+            json.dump(pipeline.metrics(), fh, indent=2)
+    reader.close()
+    if args.log:
+        log_fh.close()
+    elif log_fh is not sys.stderr:
+        log_fh.flush()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/pairhmm.cu`` exposes a plain C interface, so it is compiled with
+``nvcc`` alone into a shared library and bound with ``ctypes``: no torch
+headers, no ``ninja``.  The build runs at first use, into
+``longtr_tpu_torch/_build/``, and is keyed by a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Any failure (no ``nvcc``, a compile error, a library that does not load)
+raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "pairhmm.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+# --fmad=false: a fused multiply-add would round `m2d + (j-1)*d2d` and the
+# other integer-valued products once instead of twice, which breaks bit
+# identity with the plain scan and the native scorer (built with
+# -ffp-contract=off for the same reason).
+NVCC_FLAGS = ("-O3", "-std=c++17",
+              "-gencode", "arch=compute_90a,code=sm_90a",
+              "--fmad=false", "-Xptxas", "-v",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+build_info = {}   # path, seconds, compiler report of the loaded library
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME "
+                       "(default /usr/local/cuda); the CUDA kernels cannot "
+                       "be built")
+
+
+def _build(out_path: str) -> None:
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.time()
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out_path)   # atomic: concurrent builders agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_info.update(seconds=time.time() - t0, report=proc.stderr)
+
+
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pairhmm_resident_smem_bytes.argtypes = [i]
+    lib.pairhmm_resident_smem_bytes.restype = ctypes.c_long
+    lib.pairhmm_max_smem_optin.argtypes = [i, ctypes.POINTER(i)]
+    lib.pairhmm_max_smem_optin.restype = i
+    lib.pairhmm_resident.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
+    lib.pairhmm_resident.restype = i
+    lib.pairhmm_streamed.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p]
+    lib.pairhmm_streamed.restype = i
+
+
+def load_library():
+    """The kernels' shared library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        with open(SOURCE, "rb") as fh:
+            key = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+        out = os.path.join(BUILD_DIR, f"libpairhmm_{key.hexdigest()[:16]}.so")
+        if not os.path.exists(out):
+            _build(out)
+        else:
+            build_info.update(seconds=0.0, report="")
+        lib = ctypes.CDLL(out)
+        _bind(lib)
+        build_info["path"] = out
+        _lib = lib
+        return _lib
