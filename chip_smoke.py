@@ -12,13 +12,23 @@ Phases, one line or more each:
    kernel (forced), the plain torch scan on the card and the native host
    scorer; every pair of them must agree bit for bit (tolerance 0).  One
    batch is too wide for the resident kernel and must be routed to the
-   streamed one.  Times each kernel and the plain scan at the main path's
+   streamed one.  The mode-B kernel at bench.py's shape (512 pooled reads
+   of a 35 bp | A x 18 | 35 bp locus with -2/-1/+1 alternates) and on rows
+   too wide for its shared memory must equal the plain torch rows on the
+   card (tolerance 0), and its marginalized LLs the host f64 path within
+   1e-4.  Times each kernel and its plain version at the main path's
    shapes.
-3. e2e     — the `longtr` CLI of the port on two synthetic catalogs (512
-   short STRs; 24 VNTRs of 500-3000 bp), each run twice: on the card, and
-   with pair scoring given to the native host scorer.  The VCF bodies must
-   be byte-identical, both kernels must have launched, and no pair may have
-   been scored on the host in the card's runs.
+3. e2e     — the `longtr` CLI of the port, each run twice: on the card, and
+   with pair scoring given to the native host scorer and mode B to the
+   plain rows on the card.  Catalogs: 512 short STRs, with and without
+   --stutter-align-len 25 (one locus in six is an A homopolymer, so mode B
+   and the pair-HMM both run); 24 VNTRs of 500-3000 bp; and the dryrun
+   catalog's --snp-vcf, --ref-vcf and mode-B + --haploid-chrs surfaces and
+   its core surface with LONGTR_DEVICE_POSTERIOR=1.  The VCF bodies must
+   be byte-identical, each run's kernels must have launched (counts reset
+   just before it and read just after), and no pair and no mode-B element
+   may have been scored off the card, but for mode-B elements outside the
+   row tables' envelope, which the host scores by design.
 
 The last lines are a JSON object of the kernels, the card's nvidia-smi
 name and power limit, and the result line.  Exits non-zero, printing no
@@ -76,6 +86,131 @@ def kernel_lines():
     return found
 
 
+def mode_b_line():
+    """`file:line` of the jnp mode-B row scan the CUDA kernel replaces."""
+    rel = "longtr_tpu/ops/mode_b_device.py"
+    with open(os.path.join(ROOT, rel)) as fh:
+        for i, ln in enumerate(fh, 1):
+            if ln.startswith("def mode_b_cols("):
+                return f"{rel}:{i}"
+    fail(f"mode_b_cols not found in {rel}")
+
+
+def bench_mode_b_locus(device):
+    """bench.py's mode-B shape (bench.py:177-241) with the port's aligner:
+    512 distinct pooled reads of a 35 bp | A x 18 | 35 bp locus with
+    -2/-1/+1 alternates.  Returns (aligner, reads, seeds)."""
+    import numpy as np
+    from longtr_tpu.haplotype.blocks import HapBlock, Haplotype, RepeatBlock
+    from longtr_tpu.models.stutter import StutterModel
+    from longtr_tpu.pipeline.alignment import Alignment
+    from longtr_tpu_torch.pipeline.mode_b import ModeBAligner, calc_seed_base
+    rng = np.random.default_rng(2)
+    bases = list("ACGT")
+    lf = "".join(rng.choice(bases, 35).tolist())
+    rf = "".join(rng.choice(bases, 35).tolist())
+    rep = "A" * 18
+    model = StutterModel(0.9, 0.05, 0.05, 0.9, 0.01, 0.01, "A")
+    rs = 1000 + len(lf)
+    rb = RepeatBlock(rs, rs + len(rep), rep, 1, model)
+    for d in (-2, -1, 1):
+        rb.add_alternate("A" * (18 + d))
+    hap = Haplotype([HapBlock(1000, rs, lf), rb,
+                     HapBlock(rs + len(rep), rs + len(rep) + len(rf), rf)])
+    aligner = ModeBAligner(hap, device=device)
+    pools = []
+    for k in range(512):
+        fl = list(lf + "A" * (18 + int(rng.integers(-2, 2))) + rf)
+        for _ in range(int(rng.integers(1, 4))):
+            fl[int(rng.integers(0, len(fl)))] = str(rng.choice(bases))
+        seq = "".join(fl)
+        pools.append(Alignment(1000, 1000 + len(lf) + len(rep) + len(rf) - 1,
+                               False, False, f"p{k}", "I" * len(seq), seq,
+                               alignment=seq, cigar=[("=", len(seq))]))
+    seeds = [calc_seed_base(a, aligner.repeat_starts, aligner.repeat_ends,
+                            1000, rs + len(rep) + len(rf)) for a in pools]
+    keep = [i for i, s in enumerate(seeds) if s >= 0]
+    return aligner, [pools[i] for i in keep], [int(seeds[i]) for i in keep]
+
+
+def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
+    """Phase 2 for mode B: the kernel against the plain rows on the card at
+    bench.py's shape and above the shared-memory width; the LLs against
+    the host f64 path; times and pairs/s."""
+    import numpy as np
+    import torch
+    from test_torch_cuda import TABLE_KEYS, synthetic_tables
+
+    aligner, alns, seeds = bench_mode_b_locus(dev)
+    t = time.perf_counter()
+    prep = aligner.score_reads_batch_prepare(alns, seeds)
+    prep_s = time.perf_counter() - t
+    g = [torch.from_numpy(prep[k]).to(dev) for k in TABLE_KEYS]
+    n_d = prep["n_d"]
+    shape = (f"B={g[0].shape[0]} R={g[6].shape[1]} L={g[0].shape[1]} "
+             f"S={g[9].shape[1]} n_d={n_d}")
+    if not mbc.fits_on_chip(g[0].shape[1], dev):
+        fail(f"mode_b_cols: bench.py's shape {shape} does not fit on chip")
+    got = mbc.mode_b_cols(*g, n_d=n_d)
+    plain = mbd.mode_b_cols_plain(*g, n_d=n_d)
+    torch.cuda.synchronize()
+    max_err = float((got.double() - plain.double()).abs().nan_to_num().max())
+    if not torch.equal(got, plain):
+        bad = torch.nonzero(got != plain)[:4].tolist()
+        fail(f"mode_b_cols disagrees with the plain rows at {shape}: "
+             f"first {bad}")
+    # rows too wide for the block's shared memory: the workspace
+    wide = synthetic_tables(np.random.default_rng(9), 4, 20000, 32, 2, 13)
+    gw = [torch.from_numpy(np.ascontiguousarray(wide[k])).to(dev)
+          for k in TABLE_KEYS]
+    wide_shape = (4, 32, 20000, 2, 13)
+    if mbc.fits_on_chip(20000, dev):
+        fail("mode_b_cols: a width of 20000 should not fit on chip")
+    if not torch.equal(mbc.mode_b_cols(*gw, n_d=13),
+                       mbd.mode_b_cols_plain(*gw, n_d=13)):
+        fail(f"mode_b_cols disagrees with the plain rows at {wide_shape} "
+             "(workspace)")
+    # marginalized LLs: the card's f32 rows against the host f64 path on
+    # the first 128 reads (the host path takes ~50 ms a read)
+    timings = {}
+    lls = aligner.score_reads_batch_finish(prep, timings)
+    t = time.perf_counter()
+    host = np.stack([aligner.score_read(a, s)
+                     for a, s in zip(alns[:128], seeds[:128])])
+    host_s = (time.perf_counter() - t) / 128 * len(alns)
+    ll_err = float(np.abs(lls[:128] - host).max())
+    if not np.allclose(lls[:128], host, rtol=1e-4, atol=1e-4):
+        fail(f"mode-B LLs on the card differ from the host f64 path by "
+             f"{ll_err}")
+    ms = dev_ms(lambda: mbc.mode_b_cols(*g, n_d=n_d), 20)
+    plain_ms = dev_ms(lambda: mbd.mode_b_cols_plain(*g, n_d=n_d), 3)
+    # pairs/s as bench.py:234 defines it: (prepare + finish) per rep
+    reps, phase = 3, {"prepare_s": 0.0}
+    t = time.perf_counter()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        p = aligner.score_reads_batch_prepare(alns, seeds)
+        phase["prepare_s"] += time.perf_counter() - t0
+        aligner.score_reads_batch_finish(p, phase)
+    rep_s = (time.perf_counter() - t) / reps
+    pairs = len(alns) * aligner.hap.num_combs()
+    say("kernels", f"mode_b_cols at bench.py's shape ({shape}): == plain "
+        f"rows on the card (bit-identical); LLs within {ll_err:.3g} of the "
+        "host f64 path on 128 reads; rows of width 20000 (workspace) == "
+        "plain")
+    say("kernels", f"mode_b_cols on {smi}: kernel {ms:.4f} ms, plain rows "
+        f"{plain_ms:.3f} ms (CUDA events); host f64 score_read "
+        f"{host_s:.3f} s for all {len(alns)} reads (wall, timed on 128); "
+        f"first prepare {prep_s:.3f} s")
+    say("kernels", f"mode-B pairs/s (bench.py's definition): "
+        f"{pairs / rep_s:.5g} ({rep_s:.4f} s a rep: prepare "
+        f"{phase['prepare_s'] / reps:.4f}, dispatch "
+        f"{phase['dispatch_s'] / reps:.4f}, marginalize "
+        f"{phase['marginalize_s'] / reps:.4f})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "shape": shape, "wide_shape": wide_shape}
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "longtr_tpu_torch")):
         fail("run from a checkout of the repository (longtr_tpu_torch/ "
@@ -98,6 +233,8 @@ def smoke(tmp, dev, smi):
     # ---- 1. device -------------------------------------------------------
     from longtr_tpu import native
     from longtr_tpu_torch.ops import _build, pairhmm_cuda as pc
+    from longtr_tpu_torch.ops import mode_b_cuda as mbc
+    from longtr_tpu_torch.ops import mode_b_device as mbd
     from longtr_tpu_torch.ops import pairhmm as ph
     say("device", f"{smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} card(s)")
@@ -282,6 +419,8 @@ def smoke(tmp, dev, smi):
         f"{ms:.3f} ms = {cells / ms * 1e3:.4g} cells/s (the only kernel "
         "that takes this width; plain scan not timed)")
 
+    mb = mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms)
+
     # ---- 3. e2e ----------------------------------------------------------
     spec = importlib.util.spec_from_file_location(
         "loci_throughput", os.path.join(ROOT, "benchmarks",
@@ -303,16 +442,18 @@ def smoke(tmp, dev, smi):
             return [ln for ln in fh.read().splitlines()
                     if not ln.startswith("##command")]
 
-    def run(tag, fx, extra, scorer, out_dir):
-        out = os.path.join(out_dir, f"{tag}.vcf.gz")
-        metrics = os.path.join(out_dir, f"{tag}.json")
+    def run(tag, fx, extra, scorer, out_dir, mode_b_scorer=None):
+        name = tag.replace(" ", "_").replace("+", "_")
+        out = os.path.join(out_dir, f"{name}.vcf.gz")
+        metrics = os.path.join(out_dir, f"{name}.json")
         argv = ["--bams", ",".join(fx[2]), "--fasta", fx[0], "--regions",
                 fx[1], "--tr-vcf", out, "--use-unpaired", "--min-reads", "5",
                 "--quiet", "--metrics-out", metrics, *extra]
         poa._memo.clear()        # no assembly reuse across runs
         torch.cuda.synchronize()
         t = time.perf_counter()
-        rc = cli.main(argv, device=dev, pair_scorer=scorer)
+        rc = cli.main(argv, device=dev, pair_scorer=scorer,
+                      mode_b_scorer=mode_b_scorer)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         if rc != 0:
@@ -327,33 +468,68 @@ def smoke(tmp, dev, smi):
         return lt.build_catalog(d, n, seed=1, **kw)
 
     t = time.perf_counter()
-    catalogs = [("STR", catalog("str_in", 512), []),
+    sys.path.insert(0, ROOT)
+    from __graft_entry__ import _dryrun_catalog
+    d = os.path.join(tmp, "dryrun_in")
+    os.makedirs(d)
+    dr = _dryrun_catalog(d)
+    dry = (dr["fasta"], dr["bed"], dr["bams"])
+    str_fx = catalog("str_in", 512)
+    # (tag, catalog, options, environment): the card's runs of each are
+    # compared with a native-scored reference run of the same options.  The
+    # device-posterior run's reference is the default host-f64 posterior.
+    catalogs = [("STR", str_fx, [], {}),
                 ("VNTR", catalog("vntr_in", 24, vntr=True),
-                 ["--max-tr-len", "10000"])]
+                 ["--max-tr-len", "10000"], {}),
+                ("STR mode B", str_fx, ["--stutter-align-len", "25"], {}),
+                ("dryrun snp-vcf", dry, ["--snp-vcf", dr["snp_vcf"]], {}),
+                ("dryrun ref-vcf", dry, ["--ref-vcf", dr["panel"]], {}),
+                ("dryrun mode-b+haploid", dry, ["--stutter-align-len", "25",
+                                                "--haploid-chrs", "chrH"], {}),
+                ("dryrun core device-posterior", dry, [],
+                 {"LONGTR_DEVICE_POSTERIOR": "1"})]
     say("e2e", f"catalogs built in {time.perf_counter() - t:.1f} s "
-        "(512 short-STR loci; 24 VNTR loci, 500-3000 bp repeats; 3 samples "
-        "at 20x)")
+        "(512 short-STR loci, one in six an A homopolymer of 10-25 copies; "
+        "24 VNTR loci, 500-3000 bp repeats; 3 samples at 20x; the "
+        f"{dr['n_loci']}-locus dryrun catalog at 18x)")
     refs = {}
-    for tag, fx, extra in catalogs:
-        refs[tag] = run(f"{tag}_native", fx, extra, native_scorer, tmp)
+    for tag, fx, extra, _env in catalogs:
+        refs[tag] = run(tag + " native", fx, extra, native_scorer, tmp,
+                        mode_b_scorer=mbd.mode_b_cols_plain)
     # The VNTR run lowers the resident kernel's shared-memory limit so that
     # read widths above 2048 take the streamed kernel; with the default
     # limit (the card's opt-in maximum, ~17k columns) every width of these
     # catalogs fits the resident kernel.
     vntr_limit = pc.resident_smem_bytes(2048)
-    pc.reset_launches()
-    for k in ph.pairs_scored:
-        ph.pairs_scored[k] = 0
-    results = {}
-    for tag, fx, extra in catalogs:
+    shapes = []
+    real_mode_b = mbc.mode_b_cols
+
+    def recording(*args, n_d, **kw):
+        shapes.append((args[0].shape[0], args[6].shape[1], args[0].shape[1],
+                       args[9].shape[1], n_d))
+        return real_mode_b(*args, n_d=n_d, **kw)
+
+    mbc.mode_b_cols = recording      # records shapes; counts stay the wrapper's
+    results, counts = {}, {}
+    for tag, fx, extra, env in catalogs:
         pc.resident_limit_bytes = vntr_limit if tag == "VNTR" else None
+        os.environ.update(env)
+        # every count to 0 just before the path, read just after
+        pc.reset_launches()
+        mbc.reset_launches()
+        for c in (ph.pairs_scored, mbd.mode_b_elements_scored):
+            for k in c:
+                c[k] = 0
         try:
-            results[tag] = run(f"{tag}_cuda", fx, extra, None, tmp)
+            results[tag] = run(tag + " cuda", fx, extra, None, tmp)
         finally:
             pc.resident_limit_bytes = None
-    launches = dict(pc.launches)
-    scored = dict(ph.pairs_scored)
-    for tag, fx, extra in catalogs:
+            for k in env:
+                del os.environ[k]
+        counts[tag] = ({**pc.launches, **mbc.launches}, dict(ph.pairs_scored),
+                       dict(mbd.mode_b_elements_scored))
+    mbc.mode_b_cols = real_mode_b
+    for tag, fx, extra, env in catalogs:
         out, dt, m = results[tag]
         ref_out, ref_dt, _ = refs[tag]
         got, want = body(out), body(ref_out)
@@ -367,18 +543,38 @@ def smoke(tmp, dev, smi):
             fail(f"{tag}: no VCF records")
         loci = m["loci_processed"]
         stages = sorted(m["stage_seconds"].items(), key=lambda kv: -kv[1])
+        launches, scored, mode_b_scored = counts[tag]
         say("e2e", f"{tag}: {n_rec} records byte-identical to the "
             f"native-scored run | card {loci / dt:.4g} loci/s ({dt:.2f} s), "
             f"native-scored {loci / ref_dt:.4g} loci/s ({ref_dt:.2f} s) "
             f"on {smi} | {m['num_dispatches']} batches, {m['num_syncs']} syncs")
         say("e2e", f"{tag} stage seconds: "
             + "  ".join(f"{k}={v:.3f}" for k, v in stages))
-    say("e2e", f"kernel launches {launches}; pair rows scored {scored}")
-    for k, v in launches.items():
-        if v == 0:
-            fail(f"{k} was not launched by the e2e runs")
-    if scored["cpu"] or scored["host_f64"] or not scored["cuda"]:
-        fail(f"pairs scored off the card in the e2e runs: {scored}")
+        say("e2e", f"{tag}: kernel launches {launches}; pair rows scored "
+            f"{scored}; mode-B elements scored {mode_b_scored} (host_f64 = "
+            "configs outside the row tables' envelope)")
+        need = {"STR": ["pairhmm_resident"], "VNTR": ["pairhmm_streamed"],
+                "STR mode B": ["pairhmm_resident", "mode_b_cols"],
+                "dryrun mode-b+haploid": ["pairhmm_resident", "mode_b_cols"]
+                }.get(tag, ["pairhmm_resident"])
+        for k in need:
+            if launches[k] == 0:
+                fail(f"{tag}: {k} was not launched")
+        if scored["cpu"] or scored["host_f64"] or not scored["cuda"]:
+            fail(f"{tag}: pairs scored off the card: {scored}")
+        if mode_b_scored["cpu"] or ("mode_b_cols" in need
+                                    and not mode_b_scored["cuda"]):
+            fail(f"{tag}: mode-B elements scored off the card: "
+                 f"{mode_b_scored}")
+    widest = max(shapes, key=lambda x: x[0] * x[1] * x[2] * x[3] * x[4])
+    say("e2e", f"mode_b_cols: {len(shapes)} e2e launches; widest (B, R_max, "
+        f"L_max, S_max, n_d) = {widest}; the widest rows of phase 2: "
+        f"{mb['wide_shape']}")
+    mb_stages = results["STR mode B"][2]["stage_seconds"]
+    say("e2e", "STR mode B, mode-B stage seconds on the card: prepare (in "
+        f"Haplotype build) {mb_stages.get('Haplotype build', 0.0):.3f}, "
+        f"Mode B dispatch (row DP + marginalize) "
+        f"{mb_stages.get('Mode B dispatch', 0.0):.3f}")
     if "jax" in {k.split(".")[0] for k, v in sys.modules.items() if v}:
         fail("JAX was imported")
 
@@ -386,14 +582,25 @@ def smoke(tmp, dev, smi):
     lines = kernel_lines()
     main_shape = {"pairhmm_resident": cases[0][0],
                   "pairhmm_streamed": cases[1][0]}
+    # launches: the count of each kernel's main path (the slice's mode-B
+    # STR run; the VNTR run for the streamed kernel)
+    main_run = {"pairhmm_resident": "STR mode B", "pairhmm_streamed": "VNTR",
+                "mode_b_cols": "STR mode B"}
     kernels = [{"name": k, "route": "cuda", "source": src,
                 "replaces": lines[pallas],
-                "launches": launches[k], "max_abs_err": max_err[k],
+                "launches": counts[main_run[k]][0][k],
+                "max_abs_err": max_err[k],
                 "ms": timing[main_shape[k]][k],
                 "plain_ms": timing[main_shape[k]]["plain"],
                 "shape": main_shape[k]}
                for k, pallas in (("pairhmm_resident", "_kernel"),
                                  ("pairhmm_streamed", "_kernel_chunked"))]
+    kernels.append({"name": "mode_b_cols", "route": "cuda",
+                    "source": "longtr_tpu_torch/csrc/mode_b.cu",
+                    "replaces": mode_b_line(),
+                    "launches": counts[main_run["mode_b_cols"]][0]["mode_b_cols"],
+                    "max_abs_err": mb["max_abs_err"], "ms": mb["ms"],
+                    "plain_ms": mb["plain_ms"], "shape": mb["shape"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,19 +23,17 @@ def _unported(args) -> str | None:
     """The first option given that this package does not run yet."""
     checks = (("--workers", args.workers > 1),
               ("--distributed", args.distributed),
-              ("--jax-profile", bool(args.jax_profile)),
-              ("--stutter-align-len", args.stutter_align_len != 0),
-              ("--snp-vcf", bool(args.snp_vcf)),
-              ("--ref-vcf", bool(args.ref_vcf)))
+              ("--jax-profile", bool(args.jax_profile)))
     return next((flag for flag, given in checks if given), None)
 
 
-def main(argv=None, device=None, pair_scorer=None):
-    """Run ``longtr``.  ``device`` (default: auto) and ``pair_scorer`` (a
-    replacement for the pair-HMM, used by chip_smoke.py's reference run)
-    are for programs that call this in-process; they are not options."""
+def main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
+    """Run ``longtr``.  ``device`` (default: auto), ``pair_scorer`` (a
+    replacement for the pair-HMM) and ``mode_b_scorer`` (a replacement for
+    ``mode_b_cols``), used by chip_smoke.py's reference run, are for
+    programs that call this in-process; they are not options."""
     try:
-        return _main(argv, device, pair_scorer)
+        return _main(argv, device, pair_scorer, mode_b_scorer)
     except (OSError, ValueError, EOFError) as e:
         # printErrorAndDie analog (error.h:6): clean message, nonzero exit.
         # Set LONGTR_TRACEBACK=1 to see the full traceback when debugging.
@@ -52,7 +50,7 @@ def main(argv=None, device=None, pair_scorer=None):
         raise
 
 
-def _main(argv=None, device=None, pair_scorer=None):
+def _main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
     if argv is None:
         argv = sys.argv[1:]
     args = build_parser().parse_args(argv)
@@ -147,7 +145,8 @@ def _main(argv=None, device=None, pair_scorer=None):
     cfg = config_from_args(args)
     from longtr_tpu_torch.pipeline.processor import GenotyperPipeline
     pipeline = GenotyperPipeline(cfg, use_bam_rgs, full_logger, sel_logger,
-                                 device=device, pair_scorer=pair_scorer)
+                                 device=device, pair_scorer=pair_scorer,
+                                 mode_b_scorer=mode_b_scorer)
     if log_fh is not sys.stderr:
         pipeline.log_flush = log_fh.flush
 
@@ -167,9 +166,31 @@ def _main(argv=None, device=None, pair_scorer=None):
         if args.filt_bam:
             pipeline.filt_bam = BamWriter(args.filt_bam, hdr.text,
                                           hdr.ref_names, hdr.ref_lengths)
+    if args.ref_vcf:
+        from longtr_tpu.io.vcf import VCFReader
+        pipeline.ref_vcf = VCFReader(args.ref_vcf)
+    if args.snp_vcf and not args.phased_bam:
+        from longtr_tpu.io.vcf import VCFReader
+        pipeline.snp_vcf = VCFReader(args.snp_vcf)
     if args.fam:
-        sys.exit("ERROR: --fam option only applies if --snp-vcf option "
-                 "has been specified as well")
+        # Pedigree-based SNP filtering before physical phasing
+        # (hipstr_main.cpp:581-594 + snp_bam_processor.h:89-105).
+        if not args.snp_vcf:
+            sys.exit("ERROR: --fam option only applies if --snp-vcf option "
+                     "has been specified as well")
+        from longtr_tpu.denovo.haplotype_tracker import HaplotypeTracker
+        from longtr_tpu.denovo.pedigree import (
+            extract_pedigree_nuclear_families)
+        from longtr_tpu.io.vcf import VCFReader
+        snp_samples = set(pipeline.snp_vcf.samples)
+        families = extract_pedigree_nuclear_families(
+            args.fam, snp_samples, full_logger)
+        families = [f for f in families if not f.is_missing_sample(snp_samples)]
+        if families:
+            # Separate reader: the tracker's sliding window iterates
+            # independently of the per-locus SNP-tree queries.
+            pipeline.snp_tracker = HaplotypeTracker(
+                families, VCFReader(args.snp_vcf))
 
     if not args.skip_genotyping:
         samples = cfg.sample_set & rg_samples if cfg.sample_set else rg_samples

@@ -1,17 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/pairhmm.cu`` exposes a plain C interface, so it is compiled with
-``nvcc`` alone into a shared library and bound with ``ctypes``: no torch
-headers, no ``ninja``.  The build runs at first use, into
-``longtr_tpu_torch/_build/``, and is keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
-Any failure (no ``nvcc``, a compile error, a library that does not load)
-raises: there is no fallback.
+Every ``csrc/*.cu`` (the pair-HMM kernels and the mode-B row DP) exposes a
+plain C interface, so one ``nvcc`` call compiles them all into one shared
+library, bound with ``ctypes``: no torch headers, no ``ninja``.  The build
+runs at first use, into ``longtr_tpu_torch/_build/``, and is keyed by a
+hash of every source and the flags, so an edited source rebuilds and an
+unchanged tree loads at once.  Any failure (no ``nvcc``, a compile error,
+a library that does not load) raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -21,13 +22,13 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "pairhmm.cu")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# --fmad=false: a fused multiply-add would round `m2d + (j-1)*d2d` and the
-# other integer-valued products once instead of twice, which breaks bit
-# identity with the plain scan and the native scorer (built with
-# -ffp-contract=off for the same reason).
+# --fmad=false: a fused multiply-add would round `m2d + (j-1)*d2d`, the
+# mode-B `j*i2i` terms and the other products once instead of twice, which
+# breaks bit identity with the plain torch versions and the native scorer
+# (built with -ffp-contract=off for the same reason).
 NVCC_FLAGS = ("-O3", "-std=c++17",
               "-gencode", "arch=compute_90a,code=sm_90a",
               "--fmad=false", "-Xptxas", "-v",
@@ -56,7 +57,7 @@ def _build(out_path: str) -> None:
     os.close(fd)
     t0 = time.time()
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -78,6 +79,11 @@ def _bind(lib) -> None:
     lib.pairhmm_resident.restype = i
     lib.pairhmm_streamed.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p]
     lib.pairhmm_streamed.restype = i
+    lib.mode_b_smem_bytes.argtypes = [i]
+    lib.mode_b_smem_bytes.restype = ctypes.c_long
+    lib.mode_b_cols.argtypes = ([p] * 14 + [i] * 5
+                                + [ctypes.c_float, ctypes.c_float, i, p, p, p])
+    lib.mode_b_cols.restype = i
 
 
 def load_library():
@@ -86,9 +92,12 @@ def load_library():
     with _lock:
         if _lib is not None:
             return _lib
-        with open(SOURCE, "rb") as fh:
-            key = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-        out = os.path.join(BUILD_DIR, f"libpairhmm_{key.hexdigest()[:16]}.so")
+        key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in SOURCES:
+            with open(src, "rb") as fh:
+                key.update(os.path.basename(src).encode() + b"\0"
+                           + fh.read())
+        out = os.path.join(BUILD_DIR, f"libkernels_{key.hexdigest()[:16]}.so")
         if not os.path.exists(out):
             _build(out)
         else:

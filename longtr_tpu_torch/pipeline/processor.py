@@ -1,9 +1,11 @@
 """The per-locus processing loop.
 
 Port of :mod:`longtr_tpu.pipeline.processor`.  The pipeline receives its
-``torch.device`` from the CLI and builds the pair scorer around it; the EM
-stutter trainer runs on the host (no mesh), and posteriors are always the
-host f64 path.
+``torch.device`` from the CLI and builds the pair scorer around it; mode B
+(``--stutter-align-len``) runs its row DP on the same device.  The EM
+stutter trainer runs on the host (no mesh).  Posteriors are the host f64
+path; with ``LONGTR_DEVICE_POSTERIOR=1`` the pruning decision of each
+window comes from one batched call on the device first.
 
 Reference: the BamProcessor → SNPBamProcessor → GenotyperBamProcessor
 template-method chain (bam_processor.cpp:536-628;
@@ -18,6 +20,7 @@ left-align → SeqStutterGenotyper (pair-HMM + posteriors) → VCF record.
 from __future__ import annotations
 
 import functools
+import os
 import time
 from dataclasses import dataclass
 
@@ -77,14 +80,18 @@ class GenotyperPipeline:
     def __init__(self, config: Config, use_bam_rgs: bool = True,
                  full_logger=None, selective_logger=None,
                  device: torch.device = torch.device("cpu"),
-                 pair_scorer=None):
+                 pair_scorer=None, mode_b_scorer=None):
         """``pair_scorer(hap, hap_lens, read, read_lens, full_lens, params)``
         scores padded pair batches; by default
         :func:`~longtr_tpu_torch.ops.pairhmm.pairhmm_batch_auto` on
+        ``device``.  ``mode_b_scorer`` replaces
+        :func:`~longtr_tpu_torch.ops.mode_b_device.mode_b_cols` on
         ``device``."""
         self.config = config
+        self.device = torch.device(device)
         self.scorer = pair_scorer or functools.partial(pairhmm_batch_auto,
                                                        device=device)
+        self.mode_b_scorer = mode_b_scorer
         self.use_bam_rgs = use_bam_rgs
         self.full_log = full_logger or (lambda *a: None)
         self.sel_log = selective_logger or (lambda *a: None)
@@ -358,7 +365,8 @@ class GenotyperPipeline:
                 logger=logbuf.append, skip_assembly=cfg.skip_assembly,
                 indel_flank_len=cfg.indel_flank_len,
                 switch_old_align_len=cfg.switch_old_align_len,
-                alignment_params=cfg.alignment_params, scorer=self.scorer)
+                alignment_params=cfg.alignment_params, scorer=self.scorer,
+                device=self.device, mode_b_scorer=self.mode_b_scorer)
             ok, pairs = gt.genotype_prepare(cfg.max_total_haplotypes)
             gt.chrom_seq = chrom_seq   # shared ref, used by the viz writer
             return gt, pairs, ok, logbuf, time.time() - t_b
@@ -366,16 +374,17 @@ class GenotyperPipeline:
         # Haplotype generation (clustering + POA + NW; native, GIL-free)
         # dominates host time on long-TR catalogs and is independent
         # across loci: overlap the window's builds on a thread pool.
-        # ref_vcf mode shares a stateful VCF reader — keep that serial.
+        # Mode B's device work is deferred to _dispatch_pending (main
+        # thread) so its table building parallelizes too; ref_vcf mode
+        # shares a stateful VCF reader — keep that serial.
         # ...but for SHORT loci the pool loses: per-locus build work is
         # tens of microseconds and the submit/lock/GIL round trip costs
         # more than it hides (measured: 144 -> 192 loci/s on a 300-locus
         # short-STR catalog when building inline).  Span <= 150bp is
         # firmly in that regime; longer loci keep the pool.
-        import os as _os
         span = max((r.stop - r.start for r in group.regions), default=0)
         if self.ref_vcf is None and span > 150 \
-                and _os.environ.get("LONGTR_SERIAL_BUILD") != "1":
+                and os.environ.get("LONGTR_SERIAL_BUILD") != "1":
             self._pending.append((self._build_pool().submit(_build), group))
         else:
             self._pending.append((_build(), group))
@@ -414,6 +423,7 @@ class GenotyperPipeline:
         # replaying each locus's buffered log lines
         resolved = []
         build_s = 0.0
+        mode_b_s = 0.0
         for item, group in self._pending:
             gt, pairs, ok, logbuf, bt = (item.result()
                                          if hasattr(item, "result")
@@ -423,14 +433,23 @@ class GenotyperPipeline:
             # later phases (genotype_finalize's pruning messages) must log
             # live again, not into the already-replayed buffer
             gt.logger = self.sel_log
+            fin = getattr(gt, "_mode_b_finish", None)
+            if fin is not None:
+                # mode B: the deferred device row DP + marginalization
+                t_b = time.time()
+                gt._pool_scores = fin()
+                gt._mode_b_finish = None
+                mode_b_s += time.time() - t_b
             build_s += bt
             resolved.append((gt, pairs, ok, group))
         self._pending = resolved
         # "Haplotype build" = summed per-locus thread time (cpu-seconds,
         # can exceed wall); "Build wait" = the wall this window actually
         # blocked on builds.  "Genotyping" excludes both (no double count).
-        self.timer.add("Build wait", time.time() - t_res)
+        self.timer.add("Build wait", time.time() - t_res - mode_b_s)
         self.timer.add("Haplotype build", build_s)
+        if mode_b_s:
+            self.timer.add("Mode B dispatch", mode_b_s)
         t0 = time.time()
         all_pairs = []
         slices = []
@@ -470,11 +489,25 @@ class GenotyperPipeline:
             if ok and sl is not None:
                 lo, n = sl
                 gt._pool_scores = scores[lo: lo + n].reshape(gt._request_shape)
-        for (gt, pairs, ok, group), sl in zip(window, slices):
+        # LONGTR_DEVICE_POSTERIOR=1: the pruning-decision posteriors of the
+        # whole window in one batched call on the device.  Final VCF numbers
+        # are always recomputed host-side in f64 (genotyper.cpp parity)
+        # inside genotype_finalize.
+        initial = {}
+        if os.environ.get("LONGTR_DEVICE_POSTERIOR") == "1":
+            from longtr_tpu_torch.ops.posterior import batched_posteriors
+            live = [(i, gt) for i, (gt, _p, ok, _g) in enumerate(window) if ok]
+            if live:
+                t_p = time.time()
+                results = batched_posteriors(
+                    [gt.posterior_request() for _i, gt in live], self.device)
+                initial = {i: res for (i, _gt), res in zip(live, results)}
+                self.timer.add("Device posterior", time.time() - t_p)
+        for idx, (gt, pairs, ok, group) in enumerate(window):
             if not ok:
                 self.stats.num_genotype_fail += 1
                 continue
-            if gt.genotype_finalize():
+            if gt.genotype_finalize(initial_posterior=initial.get(idx)):
                 self.stats.num_genotype_success += 1
                 write_vcf_record(gt, self.samples_to_genotype,
                                  output_flags(cfg), self.vcf_writer,

@@ -1,5 +1,6 @@
-"""The port's CUDA pair-HMM kernels against the plain scan and the native
-scorer, on a CUDA card.
+"""The port's CUDA kernels against their plain versions, on a CUDA card:
+the pair-HMM kernels against the plain scan and the native scorer, and
+the mode-B kernel against the plain torch rows.
 
 This file imports no JAX, so it also runs where JAX is not installed, with
 the suite's JAX conftest switched off:
@@ -7,8 +8,8 @@ the suite's JAX conftest switched off:
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q
 
 Without a card its tests skip.  It also holds the seeded batches that
-tests/test_torch_pairhmm.py feeds to the plain scan and to longtr_tpu's
-scorers on the CPU.
+tests/test_torch_pairhmm.py and tests/test_torch_mode_b.py feed to the
+plain versions and to longtr_tpu's scorers on the CPU.
 """
 
 import numpy as np
@@ -16,6 +17,9 @@ import pytest
 import torch
 
 from longtr_tpu import native
+from longtr_tpu.ops.stutter_hmm import IMPOSSIBLE
+from longtr_tpu_torch.ops import mode_b_cuda
+from longtr_tpu_torch.ops import mode_b_device
 from longtr_tpu_torch.ops import pairhmm as port
 from longtr_tpu_torch.ops import pairhmm_cuda
 
@@ -172,3 +176,207 @@ def test_cuda_routing(cuda_device, monkeypatch):
             k: int(k == kernel) for k in pairhmm_cuda.launches}
         assert np.array_equal(out.cpu().numpy(),
                               port.pairhmm_scan(*g).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Mode B: homopolymer loci (the fixtures of tests/test_mode_b_device.py,
+# rebuilt here without JAX) and synthetic row tables.
+# ---------------------------------------------------------------------------
+
+def homopolymer_hap(copies_list, flank_l="ACGTTGCAGC", flank_r="GTCAGGCTAT",
+                    start=100):
+    """A flank | T-homopolymer (first entry = reference) | flank haplotype."""
+    from longtr_tpu.haplotype.blocks import HapBlock, Haplotype, RepeatBlock
+    from longtr_tpu.models.stutter import default_stutter_model
+    sm = default_stutter_model().with_period(1)
+    blocks = [HapBlock(start - len(flank_l), start, flank_l)]
+    rb = RepeatBlock(start, start + copies_list[0], "T" * copies_list[0], 1, sm)
+    for c in copies_list[1:]:
+        rb.add_alternate("T" * c)
+    blocks.append(rb)
+    blocks.append(HapBlock(start + copies_list[0],
+                           start + copies_list[0] + len(flank_r), flank_r))
+    return Haplotype(blocks)
+
+
+def homopolymer_read(copies, flank_l, flank_r, rng, err=0.02, start=100,
+                     ref_copies=12):
+    """A read of `copies` T's with substitution noise and random qualities;
+    its CIGAR is written against `ref_copies` reference T's."""
+    from longtr_tpu.pipeline.alignment import Alignment
+    seq = list(flank_l + "T" * copies + flank_r)
+    for i in range(len(seq)):
+        if rng.random() < err:
+            seq[i] = rng.choice([c for c in "ACGT" if c != seq[i]])
+    seq = "".join(seq)
+    quals = "".join(chr(33 + int(q)) for q in rng.integers(15, 40, len(seq)))
+    aln = Alignment(start - len(flank_l), start + copies + len(flank_r) - 1,
+                    False, False, "r", quals, seq, seq)
+    if copies == ref_copies:
+        aln.cigar = [("=", len(seq))]
+    elif copies > ref_copies:
+        aln.cigar = [("=", len(flank_l) + ref_copies),
+                     ("I", copies - ref_copies), ("=", len(flank_r))]
+    else:
+        aln.cigar = [("=", len(flank_l) + copies),
+                     ("D", ref_copies - copies), ("=", len(flank_r))]
+    return aln
+
+
+def _mb_fixed(alleles, copies, seed, params=None, err=0.02):
+    def make():
+        rng = np.random.default_rng(seed)
+        fl, fr = "ACGTTGCAGC", "GTCAGGCTAT"
+        return (homopolymer_hap(alleles, fl, fr),
+                [homopolymer_read(c, fl, fr, rng, err) for c in copies], params)
+    return make
+
+
+def _mb_random(trial):
+    def make():
+        rng = np.random.default_rng(1000 + trial)
+        fl = "".join(rng.choice(list("ACGT"), 8 + rng.integers(0, 6)))
+        fr = "".join(rng.choice(list("ACGT"), 8 + rng.integers(0, 6)))
+        ref = int(rng.integers(8, 16))
+        alleles = [ref] + sorted({int(a) for a in
+                                  rng.integers(4, 22, rng.integers(1, 4))}
+                                 - {ref})
+        hap = homopolymer_hap(alleles, fl, fr)
+        alns = [homopolymer_read(int(rng.choice(alleles)), fl, fr, rng,
+                                 err=0.05) for _ in range(5)]
+        return hap, alns, None
+    return make
+
+
+# name -> () -> (haplotype, alignments, alignment params or None)
+MODE_B_CASES = {
+    "fixed_12_9_15": _mb_fixed([12, 9, 15], (12, 9, 15, 11, 13, 14), 97),
+    "fixed_12_9_15_4": _mb_fixed([12, 9, 15, 4], (12, 4, 9, 15, 10), 98),
+    "fixed_custom_params": _mb_fixed([14, 13, 16, 10], (14, 13, 16, 10, 15),
+                                     99, CUSTOM, err=0.03),
+    **{f"random_{t}": _mb_random(t) for t in range(8)},
+}
+
+
+def mode_b_case(name, aligner_cls):
+    """(aligner, seedable alignments, their seeds) of a mode-B case."""
+    from longtr_tpu_torch.pipeline.mode_b import calc_seed_base
+    hap, alns, params = MODE_B_CASES[name]()
+    aligner = aligner_cls(hap, params)
+    hs, he = hap.blocks[0].start, hap.blocks[-1].end
+    seeds = [calc_seed_base(a, aligner.repeat_starts, aligner.repeat_ends,
+                            hs, he) for a in alns]
+    keep = [i for i, s in enumerate(seeds) if s >= 0]
+    assert keep, f"{name}: no seedable read"
+    return aligner, [alns[i] for i in keep], [seeds[i] for i in keep]
+
+
+TABLE_KEYS = ("codes", "quals_a", "lw_tab", "lc_tab", "pre_a", "last",
+              "hapchar", "kind", "stut_ord", "A", "bl_a", "d0_a", "dstep_a",
+              "params")
+
+
+def synthetic_tables(rng, B, L, R, S, n_d, dtype=np.float32):
+    """Random mode-B row tables: every row kind, stutter rows over S
+    ordinals, IMPOSSIBLE and -inf artifact entries, `last` anywhere."""
+    from longtr_tpu.utils.base_quality import log_prob_correct, log_prob_error
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    lw = np.array([log_prob_error(chr(i)) for i in range(256)], dtype)
+    lc = np.array([log_prob_correct(chr(i)) for i in range(256)], dtype)
+    codes = rng.choice(acgt, (B, L))
+    quals = rng.integers(33, 75, (B, L)).astype(np.uint8)
+    prefix = np.zeros((B, L), dtype)
+    for b in range(B):
+        prefix[b, 1:] = np.cumsum(lc[quals[b]].astype(np.float64))[:-1]
+    kind = np.zeros((B, R), np.uint8)
+    stut = np.zeros((B, R), np.uint8)
+    for b in range(B):
+        r, s = 1, 0
+        while r < R:
+            n0 = int(rng.integers(1, 5))
+            n3 = int(rng.integers(0, 4))
+            kind[b, r + n0:r + n0 + n3] = 3
+            r += n0 + n3
+            if r < R:
+                kind[b, r], stut[b, r] = 2, s % S
+                s += 1
+            if r + 1 < R:
+                kind[b, r + 1] = 1
+            r += 2
+    A = rng.uniform(-30, 0, (B, S, n_d, L)).astype(dtype)
+    A[rng.random(A.shape) < 0.1] = IMPOSSIBLE
+    A[:, :, n_d - 2:, :] = -np.inf
+    A[:, :, :, L - 3:] = -np.inf
+    return dict(codes=codes, quals_a=quals, lw_tab=lw, lc_tab=lc,
+                pre_a=prefix, last=rng.integers(0, L, B).astype(np.int32),
+                hapchar=rng.choice(acgt, (B, R)), kind=kind, stut_ord=stut,
+                A=A, bl_a=rng.integers(1, 12, (B, S)).astype(np.int32),
+                d0_a=-rng.integers(0, 6, (B, S)).astype(np.int32),
+                dstep_a=rng.integers(1, 3, (B, S)).astype(np.int32),
+                params=np.array([-1.0, -0.458675, -1.0, -0.458675,
+                                 -0.00005800168, -10.448214728,
+                                 -10.448214728], dtype),
+                n_d=n_d)
+
+
+def _tables_on(prep, device):
+    return [torch.from_numpy(np.ascontiguousarray(prep[k])).to(device)
+            for k in TABLE_KEYS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(MODE_B_CASES))
+def test_mode_b_kernel_bit_identical(cuda_device, case, monkeypatch):
+    """The kernel, with its rows on chip (default and 32 threads, so
+    threads own several columns) and on the workspace, equals the plain
+    rows on the card bit for bit."""
+    from longtr_tpu_torch.pipeline.mode_b import ModeBAligner
+    aligner, alns, seeds = mode_b_case(case, ModeBAligner)
+    prep = aligner.score_reads_batch_prepare(alns, seeds)
+    g = _tables_on(prep, cuda_device)
+    want = mode_b_device.mode_b_cols_plain(*g, n_d=prep["n_d"])
+    outs = [mode_b_cuda.mode_b_cols(*g, n_d=prep["n_d"]),
+            mode_b_cuda.mode_b_cols(*g, n_d=prep["n_d"], threads=32)]
+    monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
+    outs.append(mode_b_cuda.mode_b_cols(*g, n_d=prep["n_d"]))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert out.dtype == torch.float32 and out.shape == want.shape
+        assert torch.equal(out, want), case
+
+
+@pytest.mark.gpu
+def test_mode_b_kernel_wider_than_shared_memory(cuda_device):
+    """A width whose rows do not fit one block's shared memory runs on the
+    workspace, on the card, bit for bit like the plain rows."""
+    L = 20000
+    assert not mode_b_cuda.fits_on_chip(L, cuda_device)
+    prep = synthetic_tables(np.random.default_rng(7), 3, L, 24, 2, 13)
+    g = _tables_on(prep, cuda_device)
+    mode_b_cuda.reset_launches()
+    got = mode_b_device.mode_b_cols(*g, n_d=prep["n_d"])
+    want = mode_b_device.mode_b_cols_plain(*g, n_d=prep["n_d"])
+    torch.cuda.synchronize()
+    assert mode_b_cuda.launches == {"mode_b_cols": 1}
+    assert got.device == cuda_device and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_mode_b_cuda_routing(cuda_device):
+    """mode_b_cols launches the kernel for float32 card tensors (one count
+    per launch) and raises for float64 ones."""
+    prep = synthetic_tables(np.random.default_rng(8), 5, 40, 16, 1, 7)
+    g = _tables_on(prep, cuda_device)
+    mode_b_cuda.reset_launches()
+    out = mode_b_device.mode_b_cols(*g, n_d=prep["n_d"])
+    torch.cuda.synchronize()
+    assert mode_b_cuda.launches == {"mode_b_cols": 1}
+    assert torch.equal(out, mode_b_device.mode_b_cols_plain(
+        *g, n_d=prep["n_d"]))
+    g64 = _tables_on(synthetic_tables(np.random.default_rng(8), 5, 40, 16, 1,
+                                      7, dtype=np.float64), cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        mode_b_device.mode_b_cols(*g64, n_d=prep["n_d"])
+    with pytest.raises(ValueError, match="dtype"):
+        mode_b_cuda.mode_b_cols(*g64, n_d=prep["n_d"])
+    assert mode_b_cuda.launches == {"mode_b_cols": 1}
