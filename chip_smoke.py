@@ -29,6 +29,20 @@ Phases, one line or more each:
    just before it and read just after), and no pair and no mode-B element
    may have been scored off the card, but for mode-B elements outside the
    row tables' envelope, which the host scores by design.
+4. mesh    — a mesh of four shards on the one card (4 x cuda:0): the
+   sharded pair-HMM at phase 2's 192 bp and 8 kb batches, through each
+   kernel, equals the single-device kernels (tolerance 0) and launched
+   once a shard; the device EM train loop at a realistic locus (R = 2000
+   reads, A = 12 alleles, S = 3) equals the same call on CPU shards
+   (iterations, convergence, parameters within 1e-5) and is timed against
+   the host EM; the five mesh surfaces of __graft_entry__.dryrun_multichip
+   (core, snp-vcf, mode-b+haploid, ref-vcf, em-training) through the CLI
+   with the mesh are byte-identical to the meshless runs on the card, with
+   the kernels (and, for em-training, the device EM) counted on the card
+   and no pair off it; `--workers 2` and a two-process `--distributed` run
+   of the 512-STR catalog are byte-identical to phase 3's single run; and
+   a `--jax-profile` run of the core surface writes a torch.profiler trace
+   that holds pairhmm_resident kernel events.
 
 The last lines are a JSON object of the kernels, the card's nvidia-smi
 name and power limit, and the result line.  Exits non-zero, printing no
@@ -209,6 +223,255 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
         f"{phase['marginalize_s'] / reps:.4f})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "shape": shape, "wide_shape": wide_shape}
+
+
+def realistic_em_locus():
+    """A factory of the EM trainer of one locus at a realistic size: 2000
+    reads of 3 diploid samples over 12 distinct length differences of a
+    dinucleotide repeat (in-frame and out-of-frame), drawn from a seed."""
+    import numpy as np
+    from longtr_tpu_torch.models.em import EMStutterGenotyper
+    rng = np.random.default_rng(7)
+    lengths = np.array([-8, -6, -4, -3, -2, -1, 0, 1, 2, 4, 6, 8])
+    num_bps = []
+    for (a, b), n in zip(((-4, 0), (0, 4), (2, 6)), (667, 667, 666)):
+        w = np.exp(-np.abs(lengths - a)) + np.exp(-np.abs(lengths - b))
+        num_bps.append(rng.choice(lengths, n, p=w / w.sum()).tolist())
+    zeros = [[0.0] * len(x) for x in num_bps]
+    names = ["S1", "S2", "S3"]
+    return lambda: EMStutterGenotyper(False, "NN", num_bps, zeros, zeros,
+                                      names)
+
+
+def run_cli_processes(argvs, timeout):
+    """Run `python -m longtr_tpu_torch.cli` once per argv, all at once, each
+    in its own process group; kill every group still running at the end.
+    Returns [(returncode, stderr, seconds)]."""
+    import signal
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "longtr_tpu_torch.cli",
+                               *a], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, start_new_session=True)
+             for a in argvs]
+    try:
+        outs = [pr.communicate(timeout=timeout) for pr in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"CLI processes did not finish within {timeout} s")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                os.killpg(pr.pid, signal.SIGKILL)
+                pr.wait()
+    dt = time.perf_counter() - t
+    return [(pr.returncode, err.decode(), dt)
+            for pr, (_o, err) in zip(procs, outs)]
+
+
+def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
+    """Phase 4: the mesh (4 x the card), --workers, --distributed and
+    --jax-profile."""
+    import glob
+    import socket
+
+    import numpy as np
+    import torch
+    from longtr_tpu.config import Config
+    from longtr_tpu_torch.ops import mode_b_cuda as mbc
+    from longtr_tpu_torch.ops import mode_b_device as mbd
+    from longtr_tpu_torch.ops import pairhmm as ph
+    from longtr_tpu_torch.ops import pairhmm_cuda as pc
+    from longtr_tpu_torch.parallel import mesh as pm
+    from longtr_tpu_torch.pipeline.seq_genotyper import _gather
+    mesh = pm.Mesh([dev] * 4)
+    say("mesh", f"{mesh} on {smi}")
+
+    # (a) the sharded pair-HMM through each kernel
+    tr = ph.AlignmentParams().as_array()
+    for label, arrs, _params in cases[:2]:
+        g = [torch.from_numpy(a).to(dev) for a in (*arrs, tr)]
+        want = pc.pairhmm_resident(*g).cpu().numpy().astype(np.float64)
+        if not np.array_equal(want, pc.pairhmm_streamed(*g).cpu().numpy()):
+            fail(f"{label}: the two kernels disagree")
+        for kname, limit in (("pairhmm_resident", None),
+                             ("pairhmm_streamed", 0)):
+            pc.resident_limit_bytes = limit
+            before = dict(pc.launches)
+            try:
+                shards = pm.pairhmm_batch_sharded(
+                    *arrs, ph.AlignmentParams(), mesh=mesh)
+            finally:
+                pc.resident_limit_bytes = None
+            moved = {k: pc.launches[k] - before[k] for k in pc.launches}
+            got = _gather([shards])[0]
+            if moved[kname] != mesh.size or sum(moved.values()) != mesh.size:
+                fail(f"{label}: sharded {kname} launches {moved}, expected "
+                     f"{mesh.size} of {kname}")
+            if not np.array_equal(got, want):
+                bad = np.flatnonzero(got != want)
+                fail(f"{label}: sharded {kname} differs from the "
+                     f"single-device kernels at {len(bad)} pairs")
+            say("mesh", f"{label}: pairhmm_batch_sharded through {kname}, "
+                f"{[len(s) for s in shards]} pairs a shard, one launch a "
+                "shard == the single-device kernels (bit-identical)")
+
+    # (b) the device EM train loop against CPU shards and the host EM
+    cfg = Config()
+    conv = (cfg.max_em_iter, cfg.abs_ll_converge, cfg.frac_ll_converge)
+    locus = realistic_em_locus()
+    em = locus()
+    if (em.num_alleles, len(em.sample_label), em.num_samples) != (12, 2000, 3):
+        fail(f"EM locus has A={em.num_alleles}, R={len(em.sample_label)}, "
+             f"S={em.num_samples}")
+    args = (*em.mesh_inputs(), *conv)
+    on_card = pm.em_train_sharded(mesh, *args)
+    on_cpu = pm.em_train_sharded(pm.Mesh(["cpu"] * mesh.size), *args)
+    param_err = float(np.abs(on_card[1] - on_cpu[1]).max())
+    prob_err = float(np.abs(np.exp(on_card[3]) - np.exp(on_cpu[3])).max())
+    log_err = np.abs(on_card[3] - on_cpu[3])
+    rel_err = float((log_err / np.maximum(np.abs(on_cpu[3]), 1.0)).max())
+    if (on_card[0], on_card[2]) != (on_cpu[0], on_cpu[2]):
+        fail(f"device EM: card (converged, n_iter) {on_card[0], on_card[2]} "
+             f"vs CPU shards {on_cpu[0], on_cpu[2]}")
+    if param_err > 1e-5 or prob_err > 1e-5:
+        fail(f"device EM: card vs CPU shards params {param_err}, "
+             f"posterior probabilities {prob_err}")
+    say("mesh", f"em_train_sharded at R=2000 A=12 S=3: card == CPU shards "
+        f"(converged={on_card[0]}, {on_card[2]} iterations); params within "
+        f"{param_err:.3g}, posterior probabilities within {prob_err:.3g}, "
+        f"log-posteriors within {float(log_err.max()):.3g} "
+        f"(relative {rel_err:.3g})")
+
+    def train_s(mesh_):
+        times = []
+        for _ in range(3):
+            e = locus()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if not e.train(*conv, mesh=mesh_):
+                fail("EM on the realistic locus did not converge")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return sorted(times)[1]
+
+    t_host = train_s(None)
+    t_card4 = train_s(mesh)
+    t_card1 = train_s(pm.Mesh([dev]))
+    t_host2 = train_s(None)
+    say("mesh", f"EM train at R=2000 A=12 S=3 on {smi} (wall, median of 3, "
+        f"{on_card[2]} iterations on the mesh): host EMStutterGenotyper."
+        f"train() {t_host * 1e3:.2f} ms and {t_host2 * 1e3:.2f} ms (before "
+        f"and after); device loop, 4 shards on the card {t_card4 * 1e3:.2f} "
+        f"ms, 1 shard {t_card1 * 1e3:.2f} ms")
+
+    # (c) the five mesh surfaces of __graft_entry__.dryrun_multichip
+    dry = (dr["fasta"], dr["bed"], dr["bams"])
+    surfaces = [("core", []), ("snp-vcf", ["--snp-vcf", dr["snp_vcf"]]),
+                ("mode-b+haploid", ["--stutter-align-len", "25",
+                                    "--haploid-chrs", "chrH"]),
+                ("ref-vcf", ["--ref-vcf", dr["panel"]]),
+                ("em-training", ["--no-def-stutter-model"])]
+    plain_core = None
+    for name, extra in surfaces:
+        plain, dt_plain, _m = run(f"dryrun {name} plain", dry, extra, None,
+                                  tmp)
+        if name == "core":
+            plain_core = plain
+        # every count to 0 just before the mesh run, read just after
+        pc.reset_launches()
+        mbc.reset_launches()
+        for c in (ph.pairs_scored, mbd.mode_b_elements_scored, pm.em_trains):
+            for k in c:
+                c[k] = 0
+        meshed, dt_mesh, m = run(f"dryrun {name} mesh", dry, extra, None, tmp,
+                                 mesh=mesh)
+        launches = {**pc.launches, **mbc.launches}
+        scored, trains = dict(ph.pairs_scored), dict(pm.em_trains)
+        mode_b_scored = dict(mbd.mode_b_elements_scored)
+        got, want = body(meshed), body(plain)
+        n_rec = sum(1 for ln in want if not ln.startswith("#"))
+        if got != want or n_rec == 0:
+            fail(f"dryrun {name}: the mesh run's VCF body differs from the "
+                 f"meshless run on the card ({n_rec} records)")
+        if not launches["pairhmm_resident"]:
+            fail(f"dryrun {name} mesh: pairhmm_resident was not launched")
+        if scored["cpu"] or scored["host_f64"] or not scored["cuda"]:
+            fail(f"dryrun {name} mesh: pairs scored off the card: {scored}")
+        if name == "mode-b+haploid" and (not launches["mode_b_cols"]
+                                         or mode_b_scored["cpu"]):
+            fail(f"dryrun {name} mesh: mode B off the card: {launches} "
+                 f"{mode_b_scored}")
+        if name == "em-training" and (not trains["cuda"] or trains["cpu"]):
+            fail(f"dryrun {name} mesh: the device EM did not run on the "
+                 f"card: {trains}")
+        say("mesh", f"dryrun {name}: {n_rec} records byte-identical to the "
+            f"meshless run | mesh {dt_mesh:.2f} s, meshless {dt_plain:.2f} "
+            f"s | launches {launches}; pair rows {scored}; device EM trains "
+            f"{trains}; {m['num_em_converge']} EM converged")
+
+    # (d) --workers 2 and a two-process --distributed run of the STR catalog
+    base = ["--bams", ",".join(str_fx[2]), "--fasta", str_fx[0],
+            "--regions", str_fx[1], "--use-unpaired", "--min-reads", "5",
+            "--quiet"]
+    single = body(str_single)
+    out_w = os.path.join(tmp, "str_workers.vcf.gz")
+    [(rc, err, dt)] = run_cli_processes(
+        [base + ["--tr-vcf", out_w, "--workers", "2"]], timeout=300)
+    if rc != 0:
+        fail(f"--workers 2 exited {rc}: {err[-2000:]}")
+    if err.count("Device: cuda:0") != 2:
+        fail("--workers 2: the workers did not both run on cuda:0")
+    if body(out_w) != single:
+        fail("--workers 2: VCF body differs from the single run")
+    say("mesh", f"--workers 2 on the 512-STR catalog: byte-identical to "
+        f"phase 3's single run on the card ({dt:.2f} s wall, both workers "
+        "on cuda:0)")
+    out_d = os.path.join(tmp, "str_distributed.vcf.gz")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    res = run_cli_processes(
+        [base + ["--tr-vcf", out_d, "--distributed", "--coordinator",
+                 f"localhost:{port}", "--num-processes", "2",
+                 "--process-id", str(i)] for i in range(2)], timeout=300)
+    for i, (rc, err, dt) in enumerate(res):
+        if rc != 0:
+            fail(f"--distributed rank {i} exited {rc}: {err[-2000:]}")
+        if "Device: cuda:0" not in err:
+            fail(f"--distributed rank {i} did not run on cuda:0")
+    if body(out_d) != single:
+        fail("--distributed: VCF body differs from the single run")
+    if glob.glob(os.path.join(tmp, "*.shard*")):
+        fail("shard files left behind")
+    say("mesh", f"--distributed, 2 processes (gloo, localhost) on the "
+        f"512-STR catalog: byte-identical to the single run ({dt:.2f} s "
+        "wall, both ranks on cuda:0)")
+
+    # (e) --jax-profile: a torch.profiler trace of the core surface
+    prof = os.path.join(tmp, "profile")
+    out_p, dt_p, _m = run("dryrun core profile", dry, ["--jax-profile", prof],
+                          None, tmp)
+    if body(out_p) != body(plain_core):
+        fail("--jax-profile: VCF body differs from the run without it")
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"--jax-profile wrote {traces}")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    resident = [e for e in kernels if "pairhmm_resident" in e.get("name", "")]
+    if not resident:
+        fail(f"--jax-profile: no pairhmm_resident kernel event among "
+             f"{len(kernels)} kernel events")
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    span = (max(e["ts"] + e["dur"] for e in timed)
+            - min(e["ts"] for e in timed))
+    busy = sum(e["dur"] for e in kernels)
+    say("mesh", f"--jax-profile on the dryrun core surface ({dt_p:.2f} s "
+        f"wall, profiled): {os.path.basename(traces[0])} holds "
+        f"{len(events)} events, {len(kernels)} kernel events, "
+        f"{len(resident)} of pairhmm_resident "
+        f"({sum(e['dur'] for e in resident):.0f} us); kernel time "
+        f"{busy:.0f} us of a {span:.0f} us trace on {smi}")
 
 
 def main():
@@ -442,7 +705,7 @@ def smoke(tmp, dev, smi):
             return [ln for ln in fh.read().splitlines()
                     if not ln.startswith("##command")]
 
-    def run(tag, fx, extra, scorer, out_dir, mode_b_scorer=None):
+    def run(tag, fx, extra, scorer, out_dir, mode_b_scorer=None, mesh=None):
         name = tag.replace(" ", "_").replace("+", "_")
         out = os.path.join(out_dir, f"{name}.vcf.gz")
         metrics = os.path.join(out_dir, f"{name}.json")
@@ -453,7 +716,7 @@ def smoke(tmp, dev, smi):
         torch.cuda.synchronize()
         t = time.perf_counter()
         rc = cli.main(argv, device=dev, pair_scorer=scorer,
-                      mode_b_scorer=mode_b_scorer)
+                      mode_b_scorer=mode_b_scorer, mesh=mesh)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         if rc != 0:
@@ -575,6 +838,10 @@ def smoke(tmp, dev, smi):
         f"Haplotype build) {mb_stages.get('Haplotype build', 0.0):.3f}, "
         f"Mode B dispatch (row DP + marginalize) "
         f"{mb_stages.get('Mode B dispatch', 0.0):.3f}")
+
+    # ---- 4. mesh ---------------------------------------------------------
+    mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx,
+               results["STR"][0])
     if "jax" in {k.split(".")[0] for k, v in sys.modules.items() if v}:
         fail("JAX was imported")
 

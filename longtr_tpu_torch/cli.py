@@ -3,8 +3,15 @@
 Port of :mod:`longtr_tpu.cli`: the same parser (``build_parser``) and
 option mapping (``config_from_args``), which are free of JAX, and the same
 run.  The device comes from :func:`longtr_tpu_torch.device.select_device`:
-the first CUDA card when there is one, else the CPU.  Options whose code
-paths are not ported yet exit with an error that says so.
+the first CUDA card when there is one, else the CPU; with more than one
+card the pair-HMM, the EM stutter training and the window posteriors run
+on a mesh of all of them (:mod:`longtr_tpu_torch.parallel.mesh`).
+
+``--workers N`` runs N shard processes of this CLI and merges their
+outputs; ``--distributed`` runs one block shard in each of several
+processes that meet at a ``torch.distributed`` (gloo) barrier before rank
+0 merges; ``--jax-profile DIR`` writes a ``torch.profiler`` trace.  The
+shard paths and the merge are :mod:`longtr_tpu.cli`'s, which load no JAX.
 """
 
 from __future__ import annotations
@@ -12,28 +19,30 @@ from __future__ import annotations
 import io
 import json
 import os
+import subprocess
 import sys
 
-from longtr_tpu.cli import build_parser, config_from_args
+import torch
+
+from longtr_tpu.cli import (_SHARDED_OUTPUT_FLAGS, _merge_shard_outputs,
+                            _shard_path, build_parser, config_from_args)
 from longtr_tpu.version import __version__
 from longtr_tpu_torch.device import select_device
 
-
-def _unported(args) -> str | None:
-    """The first option given that this package does not run yet."""
-    checks = (("--workers", args.workers > 1),
-              ("--distributed", args.distributed),
-              ("--jax-profile", bool(args.jax_profile)))
-    return next((flag for flag, given in checks if given), None)
+# The directory that holds the package, for the worker processes' path.
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
-    """Run ``longtr``.  ``device`` (default: auto), ``pair_scorer`` (a
+def main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None,
+         mesh=None):
+    """Run ``longtr``.  ``device`` (default: auto), ``mesh`` (a
+    :class:`~longtr_tpu_torch.parallel.mesh.Mesh`; default: every card
+    when ``device`` is auto and there is more than one), ``pair_scorer`` (a
     replacement for the pair-HMM) and ``mode_b_scorer`` (a replacement for
-    ``mode_b_cols``), used by chip_smoke.py's reference run, are for
-    programs that call this in-process; they are not options."""
+    ``mode_b_cols``), used by chip_smoke.py and the tests, are for programs
+    that call this in-process; they are not options."""
     try:
-        return _main(argv, device, pair_scorer, mode_b_scorer)
+        return _main(argv, device, pair_scorer, mode_b_scorer, mesh)
     except (OSError, ValueError, EOFError) as e:
         # printErrorAndDie analog (error.h:6): clean message, nonzero exit.
         # Set LONGTR_TRACEBACK=1 to see the full traceback when debugging.
@@ -50,14 +59,119 @@ def main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
         raise
 
 
-def _main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
+def _shard_argv(argv, shard: int, drop_bare=(), drop_valued=()):
+    """``argv`` for shard ``shard`` of a fan-out: without the fan-out's own
+    options (``drop_bare`` flags, ``drop_valued`` options with their
+    value), and with each output option pointed at its shard path.  The
+    ``--flag=value`` form of an output option is rewritten too, else every
+    shard would write the same path."""
+    out = []
+    it = iter(argv)
+    for a in it:
+        key = a.split("=", 1)[0]
+        if a in drop_bare:
+            continue
+        if key in drop_valued:
+            if "=" not in a:
+                next(it, None)
+            continue
+        if key in _SHARDED_OUTPUT_FLAGS:
+            value = a.split("=", 1)[1] if "=" in a else next(it)
+            out += [key, _shard_path(value, shard)]
+            continue
+        out.append(a)
+    return out
+
+
+def _shards_of(n):
+    return lambda path: [_shard_path(path, i) for i in range(n)]
+
+
+def _run_workers(argv, args):
+    """Run N single-shard CLI processes on this host and merge their
+    outputs (port of ``longtr_tpu.cli._run_workers``).
+
+    Each worker is a fresh interpreter running ``python -m
+    longtr_tpu_torch.cli`` (no fork of a process whose CUDA is up); the
+    interleaved shards merge to the single run's output byte for byte."""
+    n = args.workers
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (_ROOT, os.environ.get("PYTHONPATH")) if p))
+    procs = []
+    try:
+        for i in range(n):
+            wargv = _shard_argv(argv, i, drop_valued={"--workers"})
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "longtr_tpu_torch.cli", *wargv,
+                 "--shard", f"{i}/{n}"], env=env))
+        failed = [i for i, pr in enumerate(procs) if pr.wait() != 0]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    if failed:
+        sys.exit(f"ERROR: worker shard(s) {failed} failed")
+    return _merge_shard_outputs(args, _shards_of(n))
+
+
+def _run_distributed(argv, args):
+    """One process of a multi-process run (port of
+    ``longtr_tpu.cli._run_distributed`` onto ``torch.distributed``).
+
+    The process joins a gloo process group (``tcp://COORDINATOR`` with
+    ``--num-processes`` and ``--process-id``; without ``--coordinator``,
+    ``env://``, the variables torchrun sets), takes the block shard of its
+    rank on card ``rank % cards`` (or the CPU), writes its shard outputs,
+    and meets the others at a barrier; then rank 0 merges.  A process group
+    that does not start ends the run with an error: nothing runs
+    unsharded."""
+    import datetime
+
+    import torch.distributed as dist
+    if args.coordinator:
+        kw = dict(init_method=f"tcp://{args.coordinator}",
+                  world_size=args.num_processes, rank=args.process_id)
+    else:
+        kw = dict(init_method="env://")
+    try:
+        dist.init_process_group("gloo", timeout=datetime.timedelta(
+            seconds=600), **kw)
+    except (RuntimeError, ValueError) as e:
+        sys.exit(f"ERROR: --distributed: the torch.distributed process "
+                 f"group did not start: {e}")
+    try:
+        rank, n = dist.get_rank(), dist.get_world_size()
+        wargv = _shard_argv(
+            argv, rank, drop_bare={"--distributed"},
+            drop_valued={"--coordinator", "--num-processes", "--process-id"})
+        cards = torch.cuda.device_count()
+        device = torch.device("cuda", rank % cards) if cards else "cpu"
+        rc = _main(wargv + ["--shard", f"{rank}/{n}", "--shard-mode", "block"],
+                   device=device)
+        if rc:
+            return rc
+        # every process must have written its shard before rank 0 merges
+        dist.barrier()
+        if rank != 0:
+            return 0
+        return _merge_shard_outputs(args, _shards_of(n))
+    finally:
+        dist.destroy_process_group()
+
+
+def _main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None,
+          mesh=None):
     if argv is None:
         argv = sys.argv[1:]
     args = build_parser().parse_args(argv)
-    flag = _unported(args)
-    if flag:
-        sys.exit(f"ERROR: {flag} is not yet ported to longtr_tpu_torch "
-                 "(use longtr_tpu's `longtr`)")
+    if args.distributed:
+        return _run_distributed(argv, args)
+    if args.workers > 1 and not args.shard:
+        return _run_workers(argv, args)
+    if mesh is None and device is None and torch.cuda.device_count() > 1:
+        from longtr_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh()
     device = select_device(device)
     if args.ref_fidelity:
         from longtr_tpu.utils import mathops
@@ -108,6 +222,8 @@ def _main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
     reader = BamMultiReader(bam_files, args.fasta)
     full_logger(f"Detected {len(bam_files)} BAM/CRAM files")
     full_logger(f"Device: {device}")
+    if mesh is not None:
+        full_logger(f"Mesh: {mesh}")
 
     # Read-group → sample/library maps (hipstr_main.cpp:461-516)
     rg_to_sample = {}
@@ -146,7 +262,7 @@ def _main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
     from longtr_tpu_torch.pipeline.processor import GenotyperPipeline
     pipeline = GenotyperPipeline(cfg, use_bam_rgs, full_logger, sel_logger,
                                  device=device, pair_scorer=pair_scorer,
-                                 mode_b_scorer=mode_b_scorer)
+                                 mode_b_scorer=mode_b_scorer, mesh=mesh)
     if log_fh is not sys.stderr:
         pipeline.log_flush = log_fh.flush
 
@@ -202,6 +318,19 @@ def _main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
         shard = (sid, nsh, args.shard_mode)
     if args.checkpoint:
         pipeline.set_checkpoint(args.checkpoint)
+    profiler = None
+    if args.jax_profile:
+        # torch.profiler takes --jax-profile's place: host activities, and
+        # the card's when the run has one; DIR/*.pt.trace.json on exit
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        devices = mesh.devices if mesh is not None else (device,)
+        activities = [ProfilerActivity.CPU]
+        if any(d.type == "cuda" for d in devices):
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities, on_trace_ready=(
+            tensorboard_trace_handler(args.jax_profile)))
+        profiler.start()
     try:
         pipeline.process_regions(reader, args.regions, args.fasta,
                                  rg_to_sample, rg_to_library, full_command,
@@ -209,6 +338,8 @@ def _main(argv=None, device=None, pair_scorer=None, mode_b_scorer=None):
                                  shard=shard)
         pipeline.finish()
     finally:
+        if profiler is not None:
+            profiler.stop()
         if log_fh is not sys.stderr and not args.log:
             log_fh.flush()
     if args.metrics_out:

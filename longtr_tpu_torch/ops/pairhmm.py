@@ -328,11 +328,16 @@ def _check_batch(hap_codes, hap_lens, read_codes, read_lens, full_hap_lens):
 
 def pairhmm_batch_auto(hap_codes, hap_lens, read_codes, read_lens,
                        full_hap_lens, params: AlignmentParams = AlignmentParams(),
-                       device: torch.device | None = None):
-    """Score a padded host batch on ``device``.
+                       device: torch.device | None = None, mesh=None):
+    """Score a padded host batch on ``device``, or over ``mesh``.
 
     * reference-fidelity mode (``--ref-fidelity``): the native f64 DP on the
       host, bit-identical to the compiled reference; returns numpy float64;
+    * a mesh of more than one shard
+      (:class:`longtr_tpu_torch.parallel.mesh.Mesh`): the batch split over
+      its devices by
+      :func:`~longtr_tpu_torch.parallel.mesh.pairhmm_batch_sharded`, which
+      scores each shard as below; returns the list of shard scores;
     * a CUDA device: the hand-written kernels, enqueued on the current
       stream; returns a float32 tensor on the card without synchronising;
     * the CPU: the plain torch scan; returns a float32 CPU tensor.
@@ -349,6 +354,9 @@ def pairhmm_batch_auto(hap_codes, hap_lens, read_codes, read_lens,
                                "(longtr_tpu/native), which failed to load")
         pairs_scored["host_f64"] += hap.shape[0]
         return out
+    if mesh is not None and mesh.size > 1:
+        from longtr_tpu_torch.parallel.mesh import pairhmm_batch_sharded
+        return pairhmm_batch_sharded(hap, hl, read, rl, fl, params, mesh=mesh)
     device = torch.device("cpu") if device is None else torch.device(device)
     model = PairHMM(params)
     cuda = device.type == "cuda"

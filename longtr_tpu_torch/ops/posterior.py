@@ -12,8 +12,9 @@ Port of :mod:`longtr_tpu.ops.posterior`
 with read LLs clamped at -600 first.  The default path computes this on
 the host in float64 (``SeqStutterGenotyper._calc_posteriors``).
 :func:`batched_posteriors` computes it for a window of loci in one float32
-call on a device; the pipeline uses it, under ``LONGTR_DEVICE_POSTERIOR=1``,
-only to decide allele pruning.
+call on a device, or on each shard of a mesh; the pipeline uses it, under
+``LONGTR_DEVICE_POSTERIOR=1`` or with a mesh, only to decide allele
+pruning.
 """
 
 from __future__ import annotations
@@ -101,19 +102,24 @@ def calc_log_sample_posteriors(log_aln_probs, log_p1, log_p2, sample_label,
     return P, totals, totals.sum(dim=-1)
 
 
-def batched_posteriors(loci, device=None):
-    """Posteriors of a WINDOW of loci in one float32 call on ``device``.
+def batched_posteriors(loci, device=None, mesh=None):
+    """Posteriors of a WINDOW of loci in one float32 call on ``device``, or
+    one call on each shard of ``mesh``.
 
     ``loci``: list of dicts with keys ``log_aln_probs`` (R_i, A_i),
     ``log_p1``/``log_p2`` (R_i,), ``sample_label`` (R_i,), ``num_samples``
     S_i, ``haploid``.  Each locus is padded to (R_max, A_max, S_max); padded
     alleles get prior/LL of -1e30 (contribute nothing), padded reads are
-    masked out, and each locus is reduced on its own.
+    masked out, and each locus is reduced on its own.  With a mesh of more
+    than one shard, shard k takes the k-th slice of ceil(L / shards) loci
+    on its device; each locus's reduction stays on one device, so the
+    results are the same for any mesh size.
 
     Returns a list of (posteriors (S_i, A_i, A_i), totals (S_i,)) float32
     numpy arrays.
     """
     device = torch.device("cpu") if device is None else torch.device(device)
+    devices = mesh.devices if mesh is not None and mesh.size > 1 else (device,)
     L = len(loci)
     R_max = max(l["log_aln_probs"].shape[0] for l in loci)
     A_max = max(l["log_aln_probs"].shape[1] for l in loci)
@@ -133,12 +139,16 @@ def batched_posteriors(loci, device=None):
         mask[i, :R] = True
         prior[i, :A, :A] = np.maximum(genotype_log_priors(A, l["haploid"]),
                                       NEG_PAD)
-    args = [torch.from_numpy(x).to(device)
-            for x in (LL, p1, p2, label, mask, prior)]
-    P_all, totals, _ = calc_log_sample_posteriors(
-        args[0], args[1], args[2], args[3], S_max, args[5], read_mask=args[4])
-    P_all = P_all.cpu().numpy()
-    totals = totals.cpu().numpy()
+    step = -(-L // len(devices))
+    shards = []
+    for k, dev in enumerate(devices[:-(-L // step)]):
+        LLk, p1k, p2k, labk, maskk, priork = (
+            torch.from_numpy(x[k * step:(k + 1) * step]).to(dev)
+            for x in (LL, p1, p2, label, mask, prior))
+        shards.append(calc_log_sample_posteriors(
+            LLk, p1k, p2k, labk, S_max, priork, read_mask=maskk)[:2])
+    P_all = np.concatenate([P.cpu().numpy() for P, _t in shards])
+    totals = np.concatenate([t.cpu().numpy() for _P, t in shards])
     out = []
     for i, l in enumerate(loci):
         A = l["log_aln_probs"].shape[1]

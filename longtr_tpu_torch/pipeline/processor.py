@@ -1,11 +1,13 @@
 """The per-locus processing loop.
 
 Port of :mod:`longtr_tpu.pipeline.processor`.  The pipeline receives its
-``torch.device`` from the CLI and builds the pair scorer around it; mode B
-(``--stutter-align-len``) runs its row DP on the same device.  The EM
-stutter trainer runs on the host (no mesh).  Posteriors are the host f64
-path; with ``LONGTR_DEVICE_POSTERIOR=1`` the pruning decision of each
-window comes from one batched call on the device first.
+``torch.device`` (and, for more than one shard, a
+:class:`~longtr_tpu_torch.parallel.mesh.Mesh`) from the CLI and builds the
+pair scorer around them; mode B (``--stutter-align-len``) runs its row DP
+on ``device``.  The EM stutter trainer runs on the host, or with a mesh
+as one train loop on the mesh.  Posteriors are the host f64 path; with a
+mesh or ``LONGTR_DEVICE_POSTERIOR=1`` the pruning decision of each window
+comes from one batched call on the devices first.
 
 Reference: the BamProcessor → SNPBamProcessor → GenotyperBamProcessor
 template-method chain (bam_processor.cpp:536-628;
@@ -29,13 +31,13 @@ import torch
 from longtr_tpu.config import Config
 from longtr_tpu.io.fasta import FastaReader
 from longtr_tpu.io.vcf import VCFWriter
-from longtr_tpu.models.em import EMStutterGenotyper
 from longtr_tpu.models.stutter import StutterModel, default_stutter_model
 from longtr_tpu.pipeline.alignment import extract_cigar, left_align_reads
 from longtr_tpu.pipeline.filters import read_and_filter_reads
 from longtr_tpu.pipeline.phasing import phased_bam_factors, unphased_factors
 from longtr_tpu.regions import RegionGroup, order_regions, read_regions
 from longtr_tpu.utils.timers import ProcessTimer
+from longtr_tpu_torch.models.em import EMStutterGenotyper
 from longtr_tpu_torch.ops.pairhmm import AlignmentParams, pairhmm_batch_auto
 from longtr_tpu_torch.pipeline.seq_genotyper import (SeqStutterGenotyper,
                                                      score_pairs_async)
@@ -80,17 +82,20 @@ class GenotyperPipeline:
     def __init__(self, config: Config, use_bam_rgs: bool = True,
                  full_logger=None, selective_logger=None,
                  device: torch.device = torch.device("cpu"),
-                 pair_scorer=None, mode_b_scorer=None):
+                 pair_scorer=None, mode_b_scorer=None, mesh=None):
         """``pair_scorer(hap, hap_lens, read, read_lens, full_lens, params)``
         scores padded pair batches; by default
         :func:`~longtr_tpu_torch.ops.pairhmm.pairhmm_batch_auto` on
-        ``device``.  ``mode_b_scorer`` replaces
+        ``device``, or over ``mesh`` when it has more than one shard.
+        ``mode_b_scorer`` replaces
         :func:`~longtr_tpu_torch.ops.mode_b_device.mode_b_cols` on
-        ``device``."""
+        ``device``.  A mesh also takes the EM stutter training and the
+        window posteriors."""
         self.config = config
         self.device = torch.device(device)
-        self.scorer = pair_scorer or functools.partial(pairhmm_batch_auto,
-                                                       device=device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.scorer = pair_scorer or functools.partial(
+            pairhmm_batch_auto, device=device, mesh=self.mesh)
         self.mode_b_scorer = mode_b_scorer
         self.use_bam_rgs = use_bam_rgs
         self.full_log = full_logger or (lambda *a: None)
@@ -288,7 +293,7 @@ class GenotyperPipeline:
         em = EMStutterGenotyper(haploid, region.motif, str_bp_lengths,
                                 str_p1s, str_p2s, rg_names)
         if em.train(cfg.max_em_iter, cfg.abs_ll_converge, cfg.frac_ll_converge,
-                    mesh=None):
+                    mesh=self.mesh):
             self.stats.num_em_converge += 1
             model = em.stutter_model.copy()
             if self.stutter_out_fh:
@@ -489,18 +494,22 @@ class GenotyperPipeline:
             if ok and sl is not None:
                 lo, n = sl
                 gt._pool_scores = scores[lo: lo + n].reshape(gt._request_shape)
-        # LONGTR_DEVICE_POSTERIOR=1: the pruning-decision posteriors of the
-        # whole window in one batched call on the device.  Final VCF numbers
-        # are always recomputed host-side in f64 (genotyper.cpp parity)
-        # inside genotype_finalize.
+        # With a mesh or LONGTR_DEVICE_POSTERIOR=1: the pruning-decision
+        # posteriors of the whole window in one batched call on the device,
+        # or one on each shard of the mesh (each locus's reduction stays on
+        # one device, so the results do not depend on the mesh size).  Final
+        # VCF numbers are always recomputed host-side in f64 (genotyper.cpp
+        # parity) inside genotype_finalize.
         initial = {}
-        if os.environ.get("LONGTR_DEVICE_POSTERIOR") == "1":
+        if (self.mesh is not None
+                or os.environ.get("LONGTR_DEVICE_POSTERIOR") == "1"):
             from longtr_tpu_torch.ops.posterior import batched_posteriors
             live = [(i, gt) for i, (gt, _p, ok, _g) in enumerate(window) if ok]
             if live:
                 t_p = time.time()
                 results = batched_posteriors(
-                    [gt.posterior_request() for _i, gt in live], self.device)
+                    [gt.posterior_request() for _i, gt in live], self.device,
+                    mesh=self.mesh)
                 initial = {i: res for (i, _gt), res in zip(live, results)}
                 self.timer.add("Device posterior", time.time() - t_p)
         for idx, (gt, pairs, ok, group) in enumerate(window):

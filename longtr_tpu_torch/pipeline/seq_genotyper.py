@@ -220,18 +220,30 @@ BATCH_LADDER = (128, 256, 2048, 8192, 65536)
 
 
 def _gather(chunks) -> list:
-    """Host float64 arrays of chunk scores, with one device-to-host copy
-    for all chunks that are still on a device."""
-    on_dev = [s for s in chunks if isinstance(s, torch.Tensor)
-              and s.device.type != "cpu"]
-    if on_dev:
+    """Host float64 arrays of chunk scores.
+
+    A chunk is a host array, a tensor, or a list of them (the shards of
+    ``pairhmm_batch_sharded``, in order), which may lie on several
+    devices.  The tensors still on a device are copied to the host with
+    one device-to-host copy per device."""
+    parts = [c if isinstance(c, list) else [c] for c in chunks]
+    by_dev = {}
+    for p in parts:
+        for s in p:
+            if isinstance(s, torch.Tensor) and s.device.type != "cpu":
+                by_dev.setdefault(s.device, []).append(s)
+    host = {}
+    for on_dev in by_dev.values():
         flat = torch.cat(on_dev).cpu().numpy()
-        parts = iter(np.split(flat, np.cumsum([len(s) for s in on_dev])[:-1]))
+        for s, v in zip(on_dev, np.split(
+                flat, np.cumsum([len(s) for s in on_dev])[:-1])):
+            host[id(s)] = v
     out = []
-    for s in chunks:
-        if isinstance(s, torch.Tensor):
-            s = next(parts) if s.device.type != "cpu" else s.numpy()
-        out.append(np.asarray(s, dtype=np.float64))
+    for p in parts:
+        vals = [host[id(s)] if id(s) in host else
+                s.numpy() if isinstance(s, torch.Tensor) else np.asarray(s)
+                for s in p]
+        out.append(np.concatenate(vals).astype(np.float64, copy=False))
     return out
 
 
@@ -253,7 +265,8 @@ class ScoreHandle:
         self.n_bytes = n_bytes
 
     def result(self) -> np.ndarray:
-        """Materialize all chunk scores (the only host sync)."""
+        """Materialize all chunk scores (the only host sync; one copy per
+        device the chunks lie on)."""
         if self._pending is not None:
             vals = _gather([scores for _sel, scores in self._pending])
             for (sel, _s), v in zip(self._pending, vals):

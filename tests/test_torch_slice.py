@@ -7,8 +7,8 @@ B with --haploid-chrs, LONGTR_DEVICE_POSTERIOR=1), on the tests/synth.py
 fixture of tests/test_e2e_pipeline.py (with and without --ref-fidelity;
 --snp-vcf with --fam) and on the homopolymer catalog of tests/test_mode_b.py
 (mode B: parallel and serial builds, --ref-fidelity).  The port must import
-and run with JAX absent, refuse the options it has not ported, and refuse
-a CUDA device that is not there.
+and run with JAX absent, --workers included, and refuse a CUDA device that
+is not there.
 """
 
 import gzip
@@ -216,11 +216,14 @@ def test_em_training_identical(dryrun, tmp_path):
 
 def test_imports_and_runs_without_jax(synth, homopolymers, tmp_path):
     """In a fresh interpreter where `import jax` fails, every module of the
-    port imports and its CLI genotypes the synth fixture, and the
-    homopolymer catalog in mode B."""
+    port (the mesh included) imports and its CLI genotypes the synth
+    fixture, the homopolymer catalog in mode B, and the synth fixture again
+    with --workers 2."""
     runs = [(synth, str(tmp_path / "nojax.vcf.gz"), []),
             (homopolymers, str(tmp_path / "nojax_mode_b.vcf.gz"),
              ["--stutter-align-len", "25"])]
+    workers = _argv(synth, str(tmp_path / "nojax_workers.vcf.gz"),
+                    ["--workers", "2"])
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -228,9 +231,11 @@ def test_imports_and_runs_without_jax(synth, homopolymers, tmp_path):
         for m in pkgutil.walk_packages(longtr_tpu_torch.__path__,
                                        "longtr_tpu_torch."):
             importlib.import_module(m.name)
+        import longtr_tpu_torch.parallel.mesh
         from longtr_tpu_torch.cli import main
         for argv in {[_argv(fx, out, extra) for fx, out, extra in runs]!r}:
             assert main(argv, device="cpu") == 0
+        assert main({workers!r}) == 0
         assert "jax" not in [k.split(".")[0] for k, v in sys.modules.items()
                              if v is not None]
     """)
@@ -241,18 +246,8 @@ def test_imports_and_runs_without_jax(synth, homopolymers, tmp_path):
         want = str(tmp_path / f"jax{k}.vcf.gz")
         assert jax_main(_argv(fx, want, extra)) == 0
         assert body(out) == body(want)
-
-
-@pytest.mark.parametrize("flag", [
-    ["--workers", "2"], ["--distributed"], ["--jax-profile", "prof"]],
-    ids=lambda f: f[0])
-def test_unported_flags_exit(flag, capsys):
-    argv = ["--bams", "x.bam", "--fasta", "g.fa", "--regions", "r.bed",
-            "--tr-vcf", "out.vcf.gz", *flag]
-    with pytest.raises(SystemExit) as exc:
-        port_main(argv, device="cpu")
-    assert f"{flag[0]} is not yet ported to longtr_tpu_torch" in str(
-        exc.value.code)
+    assert body(workers[workers.index("--tr-vcf") + 1]) == body(
+        str(tmp_path / "jax0.vcf.gz"))
 
 
 def test_select_device(monkeypatch):
