@@ -8,11 +8,15 @@ Phases, one line or more each:
 1. device  — the card's name and power limit, torch and CUDA versions, and
    the build of the CUDA kernels from longtr_tpu_torch/csrc (into
    longtr_tpu_torch/_build/, at first use).
-2. kernels — seeded batches through the resident kernel, the streamed
-   kernel (forced), the plain torch scan on the card and the native host
-   scorer; every pair of them must agree bit for bit (tolerance 0).  One
-   batch is too wide for the resident kernel and must be routed to the
-   streamed one.  The mode-B kernel at bench.py's shape (512 pooled reads
+2. kernels — seeded batches through every variant of the resident kernel
+   K1 that takes their width (warp: one warp a pair; block: one block of
+   warps a pair; smem: the rows in shared memory), the streamed kernel
+   K2, the plain torch scan on the card and the native host scorer; every
+   pair of them must agree bit for bit (tolerance 0), at 192 bp, 8 kb,
+   length skew, custom parameters, gates and band fails, and at each
+   variant's width edges.  One batch is too wide for K1 and must be routed
+   to K2.  Every K1 variant and K2 is timed at 192 bp, ~3 kb and 8 kb
+   beside the plain scan and its bound.  The mode-B kernel at bench.py's shape (512 pooled reads
    of a 35 bp | A x 18 | 35 bp locus with -2/-1/+1 alternates) and on rows
    too wide for its shared memory must equal the plain torch rows on the
    card (tolerance 0), and its marginalized LLs the host f64 path within
@@ -28,14 +32,17 @@ Phases, one line or more each:
    be byte-identical, each run's kernels must have launched (counts reset
    just before it and read just after), and no pair and no mode-B element
    may have been scored off the card, but for mode-B elements outside the
-   row tables' envelope, which the host scores by design.
+   row tables' envelope, which the host scores by design.  The STR runs
+   take K1's warp variant and the VNTR run its block variant; a second
+   VNTR run lowers the width thresholds so that the smem variant and K2
+   take its batches.
 4. mesh    — a mesh of four shards on the one card (4 x cuda:0): the
-   sharded pair-HMM at phase 2's 192 bp and 8 kb batches, through each
-   kernel, equals the single-device kernels (tolerance 0) and launched
+   sharded pair-HMM at phase 2's 192 bp and 8 kb batches, through K1's
+   variant for the width and through K2, equals the single-device kernels (tolerance 0) and launched
    once a shard; the device EM train loop at a realistic locus (R = 2000
    reads, A = 12 alleles, S = 3) equals the same call on CPU shards
    (iterations, convergence, parameters within 1e-5) and is timed against
-   the host EM; the five mesh surfaces of __graft_entry__.dryrun_multichip
+   the host EM; the five mesh surfaces of the dryrun catalog
    (core, snp-vcf, mode-b+haploid, ref-vcf, em-training) through the CLI
    with the mesh are byte-identical to the meshless runs on the card, with
    the kernels (and, for em-training, the device EM) counted on the card
@@ -44,14 +51,23 @@ Phases, one line or more each:
    a `--jax-profile` run of the core surface writes a torch.profiler trace
    that holds pairhmm_resident kernel events.
 
-The last lines are a JSON object of the kernels, the card's nvidia-smi
-name and power limit, and the result line.  Exits non-zero, printing no
-result, without a CUDA card, outside a checkout of the repository, or when
-any phase fails.  Nothing here imports JAX.
+The last lines are a JSON object of the kernels (each with its launches
+on the main path, error, time, plain version's time and bound), the
+card's nvidia-smi name and power limit, and the result line.  Exits
+non-zero, printing no result, without a CUDA card, outside a checkout of
+the repository, or when any phase fails.  Nothing here imports JAX or the
+JAX package: the inputs come from longtr_tpu_torch.testing.
+
+A bound is the least time the card could take for the work: the larger of
+the operations over 67 TFLOP/s (float32 outside the tensor cores) and the
+bytes over 3.35 TB/s (each input read once, each output written once), the
+H100 SXM's published peaks at 700 W.  A pair-HMM cell is 21 float
+operations (the plain scan's adds, products and maxes), counted over the
+pairs that are neither gated nor band-failed at the start; a mode-B column
+of a row by its kind (expf and logf one operation each).
 """
 
 import gzip
-import importlib.util
 import json
 import os
 import subprocess
@@ -60,6 +76,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PEAK_F32_OPS = 67e12     # float32 operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12     # HBM3 bytes/s
 
 
 def fail(msg):
@@ -83,6 +101,39 @@ def card():
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(ops, nbytes):
+    """(ms, what bounds it) for `ops` float32 operations moving `nbytes`."""
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def pairhmm_bound(arrs):
+    """Bound of one mode-A batch (hap, hap_len, read, read_len, full_len):
+    21 float operations a cell of every pair the DP runs on."""
+    import numpy as np
+    H, hl, R, rl, fl = arrs
+    live = (fl > 60) & (np.abs(hl.astype(np.int64) - rl) <= 600)
+    cells = float((hl[live].astype(np.int64)
+                   * np.minimum(rl[live], R.shape[1])).sum())
+    nbytes = sum(a.nbytes for a in arrs) + 7 * 4 + 4 * len(H)
+    return bound(21 * cells, nbytes)
+
+
+def mode_b_bound(g, n_d):
+    """Bound of one mode_b_cols call on its tables `g` (TABLE_KEYS order):
+    per column, a flank row 18 operations, a row after a stutter row 1, a
+    stutter row 5 a stutter term plus a log and an add, row 0 one."""
+    codes, kind = g[0], g[7]
+    L = codes.shape[1]
+    per_kind = {0: 18, 1: 1, 2: 5 * n_d + 2, 3: 0}
+    k = kind[:, 1:].cpu().numpy()
+    ops = L * (kind.shape[0] + sum(int((k == kk).sum()) * v
+                                   for kk, v in per_kind.items()))
+    nbytes = sum(x.numel() * x.element_size() for x in g) + 4 * kind.numel()
+    return bound(float(ops), nbytes)
 
 
 def kernel_lines():
@@ -115,9 +166,10 @@ def bench_mode_b_locus(device):
     512 distinct pooled reads of a 35 bp | A x 18 | 35 bp locus with
     -2/-1/+1 alternates.  Returns (aligner, reads, seeds)."""
     import numpy as np
-    from longtr_tpu.haplotype.blocks import HapBlock, Haplotype, RepeatBlock
-    from longtr_tpu.models.stutter import StutterModel
-    from longtr_tpu.pipeline.alignment import Alignment
+    from longtr_tpu_torch.haplotype.blocks import (HapBlock, Haplotype,
+                                                   RepeatBlock)
+    from longtr_tpu_torch.models.stutter import StutterModel
+    from longtr_tpu_torch.pipeline.alignment import Alignment
     from longtr_tpu_torch.pipeline.mode_b import ModeBAligner, calc_seed_base
     rng = np.random.default_rng(2)
     bases = list("ACGT")
@@ -185,19 +237,20 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
         fail(f"mode_b_cols disagrees with the plain rows at {wide_shape} "
              "(workspace)")
     # marginalized LLs: the card's f32 rows against the host f64 path on
-    # the first 128 reads (the host path takes ~50 ms a read)
+    # the first 64 reads (the host path takes ~100 ms a read)
     timings = {}
     lls = aligner.score_reads_batch_finish(prep, timings)
     t = time.perf_counter()
     host = np.stack([aligner.score_read(a, s)
-                     for a, s in zip(alns[:128], seeds[:128])])
-    host_s = (time.perf_counter() - t) / 128 * len(alns)
-    ll_err = float(np.abs(lls[:128] - host).max())
-    if not np.allclose(lls[:128], host, rtol=1e-4, atol=1e-4):
+                     for a, s in zip(alns[:64], seeds[:64])])
+    host_s = (time.perf_counter() - t) / 64 * len(alns)
+    ll_err = float(np.abs(lls[:64] - host).max())
+    if not np.allclose(lls[:64], host, rtol=1e-4, atol=1e-4):
         fail(f"mode-B LLs on the card differ from the host f64 path by "
              f"{ll_err}")
     ms = dev_ms(lambda: mbc.mode_b_cols(*g, n_d=n_d), 20)
     plain_ms = dev_ms(lambda: mbd.mode_b_cols_plain(*g, n_d=n_d), 3)
+    bound_ms, bound_by = mode_b_bound(g, n_d)
     # pairs/s as bench.py:234 defines it: (prepare + finish) per rep
     reps, phase = 3, {"prepare_s": 0.0}
     t = time.perf_counter()
@@ -210,11 +263,12 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     pairs = len(alns) * aligner.hap.num_combs()
     say("kernels", f"mode_b_cols at bench.py's shape ({shape}): == plain "
         f"rows on the card (bit-identical); LLs within {ll_err:.3g} of the "
-        "host f64 path on 128 reads; rows of width 20000 (workspace) == "
+        "host f64 path on 64 reads; rows of width 20000 (workspace) == "
         "plain")
     say("kernels", f"mode_b_cols on {smi}: kernel {ms:.4f} ms, plain rows "
-        f"{plain_ms:.3f} ms (CUDA events); host f64 score_read "
-        f"{host_s:.3f} s for all {len(alns)} reads (wall, timed on 128); "
+        f"{plain_ms:.3f} ms (CUDA events), bound {bound_ms:.5f} ms "
+        f"({bound_by}; {bound_ms / ms:.3%} of it); host f64 score_read "
+        f"{host_s:.3f} s for all {len(alns)} reads (wall, timed on 64); "
         f"first prepare {prep_s:.3f} s")
     say("kernels", f"mode-B pairs/s (bench.py's definition): "
         f"{pairs / rep_s:.5g} ({rep_s:.4f} s a rep: prepare "
@@ -222,7 +276,8 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
         f"{phase['dispatch_s'] / reps:.4f}, marginalize "
         f"{phase['marginalize_s'] / reps:.4f})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "shape": shape, "wide_shape": wide_shape}
+            "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
+            "wide_shape": wide_shape}
 
 
 def realistic_em_locus():
@@ -275,7 +330,7 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
 
     import numpy as np
     import torch
-    from longtr_tpu.config import Config
+    from longtr_tpu_torch.config import Config
     from longtr_tpu_torch.ops import mode_b_cuda as mbc
     from longtr_tpu_torch.ops import mode_b_device as mbd
     from longtr_tpu_torch.ops import pairhmm as ph
@@ -285,15 +340,16 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
     mesh = pm.Mesh([dev] * 4)
     say("mesh", f"{mesh} on {smi}")
 
-    # (a) the sharded pair-HMM through each kernel
+    # (a) the sharded pair-HMM through K1's variant for the width and K2
     tr = ph.AlignmentParams().as_array()
     for label, arrs, _params in cases[:2]:
         g = [torch.from_numpy(a).to(dev) for a in (*arrs, tr)]
         want = pc.pairhmm_resident(*g).cpu().numpy().astype(np.float64)
         if not np.array_equal(want, pc.pairhmm_streamed(*g).cpu().numpy()):
             fail(f"{label}: the two kernels disagree")
-        for kname, limit in (("pairhmm_resident", None),
-                             ("pairhmm_streamed", 0)):
+        k1 = ("pairhmm_resident_warp" if arrs[2].shape[1] <= pc.WARP_MAX_WIDTH
+              else "pairhmm_resident_block")
+        for kname, limit in ((k1, None), ("pairhmm_streamed", 0)):
             pc.resident_limit_bytes = limit
             before = dict(pc.launches)
             try:
@@ -363,7 +419,7 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
         f"and after); device loop, 4 shards on the card {t_card4 * 1e3:.2f} "
         f"ms, 1 shard {t_card1 * 1e3:.2f} ms")
 
-    # (c) the five mesh surfaces of __graft_entry__.dryrun_multichip
+    # (c) the five mesh surfaces of the dryrun catalog
     dry = (dr["fasta"], dr["bed"], dr["bams"])
     surfaces = [("core", []), ("snp-vcf", ["--snp-vcf", dr["snp_vcf"]]),
                 ("mode-b+haploid", ["--stutter-align-len", "25",
@@ -392,8 +448,9 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
         if got != want or n_rec == 0:
             fail(f"dryrun {name}: the mesh run's VCF body differs from the "
                  f"meshless run on the card ({n_rec} records)")
-        if not launches["pairhmm_resident"]:
-            fail(f"dryrun {name} mesh: pairhmm_resident was not launched")
+        if not launches["pairhmm_resident_warp"]:
+            fail(f"dryrun {name} mesh: pairhmm_resident_warp was not "
+                 "launched")
         if scored["cpu"] or scored["host_f64"] or not scored["cuda"]:
             fail(f"dryrun {name} mesh: pairs scored off the card: {scored}")
         if name == "mode-b+haploid" and (not launches["mode_b_cols"]
@@ -494,7 +551,7 @@ def smoke(tmp, dev, smi):
     import torch
 
     # ---- 1. device -------------------------------------------------------
-    from longtr_tpu import native
+    from longtr_tpu_torch import native
     from longtr_tpu_torch.ops import _build, pairhmm_cuda as pc
     from longtr_tpu_torch.ops import mode_b_cuda as mbc
     from longtr_tpu_torch.ops import mode_b_device as mbd
@@ -510,10 +567,12 @@ def smoke(tmp, dev, smi):
         if "registers" in ln or "spill" in ln:
             say("device", "ptxas: " + ln.strip())
     if native.get_lib() is None:
-        fail("the native host scorer (longtr_tpu/native) did not build")
+        fail("the native host scorer (longtr_tpu_torch/native) did not "
+             "build")
     say("device", f"resident kernel opt-in shared memory "
         f"{pc.max_smem_optin(dev)} bytes")
 
+    t_phase = time.perf_counter()
     # ---- 2. kernels ------------------------------------------------------
     bases = np.frombuffer(b"ACGT", np.uint8)
 
@@ -580,41 +639,90 @@ def smoke(tmp, dev, smi):
             fl.append(60 if kind == 5 else len(h) + 60)          # short hap
         return pack(haps, reads, fl)
 
+    def batch_width(rng, B, W, full):
+        """B pairs padded to read width W: `full` of them nearly W long,
+        the rest about 200 bp."""
+        haps = [bases[rng.integers(0, 4, int(rng.integers(W - 40, W + 1))
+                                   if k < full else 200)] for k in range(B)]
+        H, hl, R, rl, fl = pack(haps, [mutate(rng, h, 0.008, 0.004)[:W]
+                                       for h in haps])
+        Rw = np.zeros((B, W), np.uint8)
+        Rw[:, :R.shape[1]] = R
+        return [H, hl, Rw, rl, fl]
+
     custom = ph.AlignmentParams.from_list(
         [-2.0, -0.3, -1.5, -0.25, -0.0001, -8.0, -9.0])
     rng = np.random.default_rng(20261016)
-    # The last case is wider than the resident kernel's shared memory takes
-    # (about 17.8k columns): pairhmm_batch must route it to the streamed
-    # kernel, where the JAX package would have sent it to the host.
+    # The last case is wider than K1's shared memory takes (about 17.8k
+    # columns): pairhmm_batch must route it to the streamed kernel, where
+    # the JAX package would have sent it to the host.
     cases = [("B=2048 @192bp", batch_192(rng, 2048), ph.AlignmentParams()),
              ("B=128 @8kb", batch_long(rng, 128, 8192), ph.AlignmentParams()),
              ("length skew 250-550bp", batch_skew(rng), ph.AlignmentParams()),
              ("custom params @192bp", batch_192(rng, 256), custom),
              ("gates + band fails", batch_gates(rng), ph.AlignmentParams()),
              ("B=8 @24kb", batch_long(rng, 8, 24576), ph.AlignmentParams())]
-    max_err = {"pairhmm_resident": 0.0, "pairhmm_streamed": 0.0}
+    # K1's width edges: each register variant's K steps (32*K, 32*K+1),
+    # warp -> block, the block variant's 8 -> 16 columns a thread, block ->
+    # smem, and the widest batch the smem variant takes and one more (short
+    # pairs there: the edge is the batch's width)
+    smem_max = max(w for w in range(16384, 24577, 64)
+                   if pc.resident_smem_bytes(w) <= pc.max_smem_optin(dev))
+    while pc.resident_smem_bytes(smem_max + 1) <= pc.max_smem_optin(dev):
+        smem_max += 1
+    edges = [(w, batch_width(rng, 16, w, 16))
+             for w in (64, 65, 128, 129, 192, 193, 256, 257, 384, 385, 512,
+                       513, 768, 769, 1024, 1025)]
+    edges += [(w, batch_width(rng, 8, w, 2)) for w in (4096, 4097, 8192, 8193)]
+    edges += [(w, batch_width(rng, 4, w, 0)) for w in (smem_max, smem_max + 1)]
+    cases += [(f"width edge {w}", arrs, ph.AlignmentParams())
+              for w, arrs in edges]
+    variants = {"pairhmm_resident_warp": pc.pairhmm_resident_warp,
+                "pairhmm_resident_block": pc.pairhmm_resident_block,
+                "pairhmm_resident_smem": pc.pairhmm_resident_smem,
+                "pairhmm_streamed": pc.pairhmm_streamed}
+
+    def takes(kname, M):
+        return {"pairhmm_resident_warp": M <= pc.WARP_MAX_WIDTH,
+                "pairhmm_resident_block": M <= pc.BLOCK_MAX_WIDTH,
+                "pairhmm_resident_smem": pc.resident_fits(M, dev),
+                "pairhmm_streamed": True}[kname]
+
+    def routed(M):
+        if not pc.resident_fits(M, dev):
+            return "pairhmm_streamed"
+        if M <= pc.WARP_MAX_WIDTH:
+            return "pairhmm_resident_warp"
+        if M <= pc.BLOCK_MAX_WIDTH:
+            return "pairhmm_resident_block"
+        return "pairhmm_resident_smem"
+
+    max_err = {k: 0.0 for k in variants}
     outcomes = set()
+    pc.reset_launches()
     for label, arrs, params in cases:
         tr = params.as_array()
+        M = arrs[2].shape[1]
         g = [torch.from_numpy(a).to(dev) for a in (*arrs, tr)]
         nat = native.pairhmm_batch_native(*arrs, tr)
         if nat is None:
             fail("native scorer unavailable")
         plain = ph.pairhmm_scan(*g).cpu().numpy()
-        outs = {}
-        if pc.resident_fits(arrs[2].shape[1], dev):
-            outs["pairhmm_resident"] = pc.pairhmm_resident(*g).cpu().numpy()
-            outs["pairhmm_streamed"] = pc.pairhmm_streamed(*g).cpu().numpy()
-        else:
-            before = pc.launches["pairhmm_streamed"]
-            outs["pairhmm_streamed"] = pc.pairhmm_batch(*g).cpu().numpy()
-            if pc.launches["pairhmm_streamed"] == before:
-                fail(f"pairhmm_batch did not route {label} to pairhmm_streamed")
+        # K2 at 24 kb only through the router (it takes 1.5 s a call)
+        outs = {k: fn(*g).cpu().numpy() for k, fn in variants.items()
+                if takes(k, M) and (k != "pairhmm_streamed" or M <= 20000)}
+        before = dict(pc.launches)
+        outs["pairhmm_batch"] = pc.pairhmm_batch(*g).cpu().numpy()
+        moved = [k for k in pc.launches if pc.launches[k] != before[k]]
+        if moved != [routed(M)]:
+            fail(f"pairhmm_batch sent {label} (width {M}) to {moved}, "
+                 f"expected {routed(M)}")
         torch.cuda.synchronize()
         for kname, out in outs.items():
-            err = float(np.max(np.abs(out.astype(np.float64)
-                                      - plain.astype(np.float64))))
-            max_err[kname] = max(max_err[kname], err)
+            if kname in max_err:
+                err = float(np.max(np.abs(out.astype(np.float64)
+                                          - plain.astype(np.float64))))
+                max_err[kname] = max(max_err[kname], err)
             if not (np.array_equal(out, plain) and np.array_equal(out, nat)):
                 bad = np.flatnonzero((out != plain) | (out != nat))
                 fail(f"{kname} disagrees on {label}: {len(bad)} pairs, "
@@ -625,14 +733,17 @@ def smoke(tmp, dev, smi):
         outcomes |= {"gate" if v == ph.IMPOSSIBLE else
                      "band fail" if v == ph.BAND_FAIL_SCORE else "aligned"
                      for v in nat}
-        ran = (" == ".join(k.split("_")[1] for k in outs) if len(outs) > 1
-               else "streamed (routed by pairhmm_batch)")
-        say("kernels", f"{label}: B={len(nat)} N={arrs[0].shape[1]} "
-            f"M={arrs[2].shape[1]} {ran} == plain == native "
-            f"(bit-identical; {int((nat == ph.BAND_FAIL_SCORE).sum())} band "
-            f"fails, {int((nat == ph.IMPOSSIBLE).sum())} gated)")
+        ran = " == ".join(k.replace("pairhmm_", "") for k in outs
+                          if k in variants) or "streamed (through the router)"
+        say("kernels", f"{label}: B={len(nat)} N={arrs[0].shape[1]} M={M} "
+            f"{ran} == plain == native (bit-identical; pairhmm_batch took "
+            f"{routed(M).replace('pairhmm_', '')}; "
+            f"{int((nat == ph.BAND_FAIL_SCORE).sum())} band fails, "
+            f"{int((nat == ph.IMPOSSIBLE).sum())} gated)")
     if outcomes != {"gate", "band fail", "aligned"}:
         fail(f"kernel cases reached only {sorted(outcomes)}")
+    if not all(pc.launches.values()):
+        fail(f"phase 2 left a variant unlaunched: {pc.launches}")
 
     def dev_ms(fn, reps):
         fn()
@@ -657,41 +768,54 @@ def smoke(tmp, dev, smi):
             del os.environ["LONGTR_NATIVE_THREADS"]
         return float((arrs[1].astype(np.int64) * arrs[3]).sum()) / dt
 
+    # Times at the three shapes of the main path: short STRs, a VNTR width
+    # and the long-VNTR shape; every kernel that takes the width, the plain
+    # scan and the bound
     timing = {}
     tr = ph.AlignmentParams().as_array()
-    for label, arrs, reps, plain_reps in ((cases[0][0], cases[0][1], 20, 3),
-                                          (cases[1][0], cases[1][1], 3, 1)):
+    shapes = [(cases[0][0], cases[0][1], 20, 3),
+              ("B=128 @3kb", batch_long(rng, 128, 3072), 3, 1),
+              (cases[1][0], cases[1][1], 3, 1)]
+    for label, arrs, reps, plain_reps in shapes:
         g = [torch.from_numpy(a).to(dev) for a in (*arrs, tr)]
+        M = arrs[2].shape[1]
         cells = float((arrs[1].astype(np.int64) * arrs[3]).sum())
-        t = {"pairhmm_resident": dev_ms(lambda: pc.pairhmm_resident(*g), reps),
-             "pairhmm_streamed": dev_ms(lambda: pc.pairhmm_streamed(*g), reps),
-             "plain": dev_ms(lambda: ph.pairhmm_scan(*g), plain_reps)}
+        want = ph.pairhmm_scan(*g)
+        t = {}
+        for k, fn in variants.items():
+            if takes(k, M):
+                if not torch.equal(fn(*g), want):
+                    fail(f"{k} disagrees with the plain scan on {label}")
+                t[k] = dev_ms(lambda: fn(*g), reps)
+        t["plain"] = dev_ms(lambda: ph.pairhmm_scan(*g), plain_reps)
+        t["bound"], t["bound_by"] = pairhmm_bound(arrs)
         timing[label] = t
-        sub = [a[:4] for a in arrs] if arrs[0].shape[1] > 1024 else \
-            [a[:256] for a in arrs]
+        sub = [a[:4] for a in arrs] if M > 1024 else [a[:256] for a in arrs]
         say("kernels", f"{label} ({cells:.4g} cells) on {smi}: "
-            + " | ".join(f"{k} {v:.3f} ms = {cells / v * 1e3:.4g} cells/s"
-                         for k, v in t.items())
-            + f" | native 1-thread host {host1_cells_per_s(sub, tr):.4g} "
-            "cells/s")
-    label, arrs, _params = cases[-1]
+            + " | ".join(f"{k.replace('pairhmm_', '')} {v:.4f} ms = "
+                         f"{cells / v * 1e3:.4g} cells/s, "
+                         f"{t['bound'] / v:.2%} of bound"
+                         for k, v in t.items() if k in variants)
+            + f" | plain {t['plain']:.3f} ms | bound {t['bound']:.5f} ms "
+            f"({t['bound_by']}) | native 1-thread host "
+            f"{host1_cells_per_s(sub, tr):.4g} cells/s")
+    label, arrs, _params = cases[5]
     g = [torch.from_numpy(a).to(dev) for a in (*arrs, tr)]
     cells = float((arrs[1].astype(np.int64) * arrs[3]).sum())
     ms = dev_ms(lambda: pc.pairhmm_batch(*g), 2)
     say("kernels", f"{label} ({cells:.4g} cells) on {smi}: pairhmm_streamed "
-        f"{ms:.3f} ms = {cells / ms * 1e3:.4g} cells/s (the only kernel "
-        "that takes this width; plain scan not timed)")
+        f"{ms:.3f} ms = {cells / ms * 1e3:.4g} cells/s, bound "
+        f"{pairhmm_bound(arrs)[0]:.4f} ms (the only kernel that takes this "
+        "width; plain scan not timed)")
 
     mb = mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms)
+    say("kernels", f"phase 2 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # ---- 3. e2e ----------------------------------------------------------
-    spec = importlib.util.spec_from_file_location(
-        "loci_throughput", os.path.join(ROOT, "benchmarks",
-                                        "loci_throughput.py"))
-    lt = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(lt)
-    from longtr_tpu.haplotype import poa
     from longtr_tpu_torch import cli
+    from longtr_tpu_torch.haplotype import poa
+    from longtr_tpu_torch.testing.catalogs import build_catalog, dryrun_catalog
 
     def native_scorer(hap, hl, read, rl, fl, params):
         out = native.pairhmm_batch_native(hap, hl, read, rl, fl,
@@ -728,42 +852,47 @@ def smoke(tmp, dev, smi):
     def catalog(sub, n, **kw):
         d = os.path.join(tmp, sub)
         os.makedirs(d)
-        return lt.build_catalog(d, n, seed=1, **kw)
+        return build_catalog(d, n, seed=1, **kw)
 
     t = time.perf_counter()
-    sys.path.insert(0, ROOT)
-    from __graft_entry__ import _dryrun_catalog
     d = os.path.join(tmp, "dryrun_in")
     os.makedirs(d)
-    dr = _dryrun_catalog(d)
+    dr = dryrun_catalog(d)
     dry = (dr["fasta"], dr["bed"], dr["bams"])
     str_fx = catalog("str_in", 512)
-    # (tag, catalog, options, environment): the card's runs of each are
-    # compared with a native-scored reference run of the same options.  The
-    # device-posterior run's reference is the default host-f64 posterior.
-    catalogs = [("STR", str_fx, [], {}),
-                ("VNTR", catalog("vntr_in", 24, vntr=True),
-                 ["--max-tr-len", "10000"], {}),
-                ("STR mode B", str_fx, ["--stutter-align-len", "25"], {}),
-                ("dryrun snp-vcf", dry, ["--snp-vcf", dr["snp_vcf"]], {}),
-                ("dryrun ref-vcf", dry, ["--ref-vcf", dr["panel"]], {}),
+    vntr_fx = catalog("vntr_in", 24, vntr=True)
+    # (tag, catalog, options, environment, routing): the card's runs of
+    # each are compared with a native-scored reference run of the same
+    # options.  The device-posterior run's reference is the default
+    # host-f64 posterior.  The VNTR catalog's batches are 1-2 kb and 2-4 kb
+    # wide, both K1's block variant; its second run lowers the thresholds
+    # (`routing`: pairhmm_cuda attributes) so that the 1-2 kb batch takes
+    # the smem variant and the 2-4 kb batch the streamed kernel.
+    catalogs = [("STR", str_fx, [], {}, {}),
+                ("VNTR", vntr_fx, ["--max-tr-len", "10000"], {}, {}),
+                ("VNTR smem+streamed", vntr_fx, ["--max-tr-len", "10000"], {},
+                 {"BLOCK_MAX_WIDTH": 1024,
+                  "resident_limit_bytes": pc.resident_smem_bytes(2048)}),
+                ("STR mode B", str_fx, ["--stutter-align-len", "25"], {}, {}),
+                ("dryrun snp-vcf", dry, ["--snp-vcf", dr["snp_vcf"]], {}, {}),
+                ("dryrun ref-vcf", dry, ["--ref-vcf", dr["panel"]], {}, {}),
                 ("dryrun mode-b+haploid", dry, ["--stutter-align-len", "25",
-                                                "--haploid-chrs", "chrH"], {}),
+                                                "--haploid-chrs", "chrH"], {},
+                 {}),
                 ("dryrun core device-posterior", dry, [],
-                 {"LONGTR_DEVICE_POSTERIOR": "1"})]
+                 {"LONGTR_DEVICE_POSTERIOR": "1"}, {})]
     say("e2e", f"catalogs built in {time.perf_counter() - t:.1f} s "
         "(512 short-STR loci, one in six an A homopolymer of 10-25 copies; "
         "24 VNTR loci, 500-3000 bp repeats; 3 samples at 20x; the "
         f"{dr['n_loci']}-locus dryrun catalog at 18x)")
     refs = {}
-    for tag, fx, extra, _env in catalogs:
+    for tag, fx, extra, _env, routing in catalogs:
+        if routing:     # the same run as the one before it, rerouted
+            refs[tag] = refs[prev]
+            continue
         refs[tag] = run(tag + " native", fx, extra, native_scorer, tmp,
                         mode_b_scorer=mbd.mode_b_cols_plain)
-    # The VNTR run lowers the resident kernel's shared-memory limit so that
-    # read widths above 2048 take the streamed kernel; with the default
-    # limit (the card's opt-in maximum, ~17k columns) every width of these
-    # catalogs fits the resident kernel.
-    vntr_limit = pc.resident_smem_bytes(2048)
+        prev = tag
     shapes = []
     real_mode_b = mbc.mode_b_cols
 
@@ -774,8 +903,10 @@ def smoke(tmp, dev, smi):
 
     mbc.mode_b_cols = recording      # records shapes; counts stay the wrapper's
     results, counts = {}, {}
-    for tag, fx, extra, env in catalogs:
-        pc.resident_limit_bytes = vntr_limit if tag == "VNTR" else None
+    for tag, fx, extra, env, routing in catalogs:
+        saved = {k: getattr(pc, k) for k in routing}
+        for k, v in routing.items():
+            setattr(pc, k, v)
         os.environ.update(env)
         # every count to 0 just before the path, read just after
         pc.reset_launches()
@@ -786,13 +917,14 @@ def smoke(tmp, dev, smi):
         try:
             results[tag] = run(tag + " cuda", fx, extra, None, tmp)
         finally:
-            pc.resident_limit_bytes = None
+            for k, v in saved.items():
+                setattr(pc, k, v)
             for k in env:
                 del os.environ[k]
         counts[tag] = ({**pc.launches, **mbc.launches}, dict(ph.pairs_scored),
                        dict(mbd.mode_b_elements_scored))
     mbc.mode_b_cols = real_mode_b
-    for tag, fx, extra, env in catalogs:
+    for tag, fx, extra, env, routing in catalogs:
         out, dt, m = results[tag]
         ref_out, ref_dt, _ = refs[tag]
         got, want = body(out), body(ref_out)
@@ -816,10 +948,13 @@ def smoke(tmp, dev, smi):
         say("e2e", f"{tag}: kernel launches {launches}; pair rows scored "
             f"{scored}; mode-B elements scored {mode_b_scored} (host_f64 = "
             "configs outside the row tables' envelope)")
-        need = {"STR": ["pairhmm_resident"], "VNTR": ["pairhmm_streamed"],
-                "STR mode B": ["pairhmm_resident", "mode_b_cols"],
-                "dryrun mode-b+haploid": ["pairhmm_resident", "mode_b_cols"]
-                }.get(tag, ["pairhmm_resident"])
+        need = {"VNTR": ["pairhmm_resident_block"],
+                "VNTR smem+streamed": ["pairhmm_resident_smem",
+                                       "pairhmm_streamed"],
+                "STR mode B": ["pairhmm_resident_warp", "mode_b_cols"],
+                "dryrun mode-b+haploid": ["pairhmm_resident_warp",
+                                          "mode_b_cols"]
+                }.get(tag, ["pairhmm_resident_warp"])
         for k in need:
             if launches[k] == 0:
                 fail(f"{tag}: {k} was not launched")
@@ -839,35 +974,46 @@ def smoke(tmp, dev, smi):
         f"Mode B dispatch (row DP + marginalize) "
         f"{mb_stages.get('Mode B dispatch', 0.0):.3f}")
 
+    say("e2e", f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     # ---- 4. mesh ---------------------------------------------------------
     mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx,
                results["STR"][0])
+    say("mesh", f"phase 4 took {time.perf_counter() - t_phase:.1f} s")
     if "jax" in {k.split(".")[0] for k, v in sys.modules.items() if v}:
         fail("JAX was imported")
 
     src = "longtr_tpu_torch/csrc/pairhmm.cu"
     lines = kernel_lines()
-    main_shape = {"pairhmm_resident": cases[0][0],
-                  "pairhmm_streamed": cases[1][0]}
-    # launches: the count of each kernel's main path (the slice's mode-B
-    # STR run; the VNTR run for the streamed kernel)
-    main_run = {"pairhmm_resident": "STR mode B", "pairhmm_streamed": "VNTR",
-                "mode_b_cols": "STR mode B"}
+    # each kernel's time at its main-path shape, and its launches in the
+    # main path's run that takes it: the STR run for the warp variant, the
+    # VNTR runs for the block and smem variants and K2, the mode-B STR run
+    # for mode_b_cols
+    main = {"pairhmm_resident_warp": (cases[0][0], "STR", "_kernel"),
+            "pairhmm_resident_block": (cases[1][0], "VNTR", "_kernel"),
+            "pairhmm_resident_smem": (cases[1][0], "VNTR smem+streamed",
+                                      "_kernel"),
+            "pairhmm_streamed": (cases[1][0], "VNTR smem+streamed",
+                                 "_kernel_chunked")}
     kernels = [{"name": k, "route": "cuda", "source": src,
                 "replaces": lines[pallas],
-                "launches": counts[main_run[k]][0][k],
+                "launches": counts[run_tag][0][k],
                 "max_abs_err": max_err[k],
-                "ms": timing[main_shape[k]][k],
-                "plain_ms": timing[main_shape[k]]["plain"],
-                "shape": main_shape[k]}
-               for k, pallas in (("pairhmm_resident", "_kernel"),
-                                 ("pairhmm_streamed", "_kernel_chunked"))]
+                "ms": timing[shape][k],
+                "plain_ms": timing[shape]["plain"],
+                "bound_ms": timing[shape]["bound"],
+                "bound_by": timing[shape]["bound_by"],
+                "library_ms": None,
+                "shape": shape}
+               for k, (shape, run_tag, pallas) in main.items()]
     kernels.append({"name": "mode_b_cols", "route": "cuda",
                     "source": "longtr_tpu_torch/csrc/mode_b.cu",
                     "replaces": mode_b_line(),
-                    "launches": counts[main_run["mode_b_cols"]][0]["mode_b_cols"],
+                    "launches": counts["STR mode B"][0]["mode_b_cols"],
                     "max_abs_err": mb["max_abs_err"], "ms": mb["ms"],
-                    "plain_ms": mb["plain_ms"], "shape": mb["shape"]})
+                    "plain_ms": mb["plain_ms"], "bound_ms": mb["bound_ms"],
+                    "bound_by": mb["bound_by"], "library_ms": None,
+                    "shape": mb["shape"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,32 +7,56 @@
 // Both compute, for each (haplotype, read) pair, the max-product DP of
 // HapAligner::align_seq_to_hap (HapAligner.cpp:236-343) without traceback,
 // bit for bit like the plain torch scan (longtr_tpu_torch/ops/pairhmm.py)
-// and the native C++ scorer (longtr_tpu/native/longtr_native.cc:1413-1568).
+// and the native C++ scorer (longtr_tpu_torch/native/longtr_native.cc:1413-1568).
 // Exactness rests on float32 add, integer-valued products and max, each in
 // the native scorer's order.  The build passes --fmad=false so that no
 // product is contracted into a fused multiply-add.
 //
-// Mapping: one thread block per pair.  Rows i (haplotype positions) run
-// sequentially; the block's threads share the read axis j.  In row i
+// In row i
 //   M[i][j] = emit(i, j) + P[i-1][j-1]                  (j >= 1)
 //   I[i][j] = MA + max(M[i-1][j] + m2i, I[i-1][j] + i2i)
 //   D[i][j] = j*d2d + max_{k<j} ((M[i][k] + m2d) - (k+1)*d2d)
 //   P[i][j] = max(max(M + m2m, D + d2m), I + i2m)      (fused predecessor)
 // so the only dependency along j inside a row is the running max of D,
-// which the block computes as an exclusive max-scan.  The band check of
-// row i (a block-wide max) rides on the scan of row i+1, and a pair stops
-// once its band flag is set or its last row is done, since neither
-// changes an output.
+// an exclusive max-scan.  The band check of row i (a max over the row)
+// rides on the scan of row i+1, and a pair stops once its band flag is set
+// or its last row is done, since neither changes an output.  Rows i run
+// in order; the threads of a pair share the read axis j.
 //
-// What bounds them: each row costs a block-wide scan (warp shuffles plus
-// a barrier) between a few float ops per cell, so both kernels are bound
-// by latency of the row loop, not by bytes or FLOPs.  The resident
-// kernel keeps M, I, P of the previous row and the read in shared memory
-// and gives each thread a contiguous run of j, so a row needs one scan
-// whatever the read length.  The streamed kernel keeps the rows in a
-// device-memory workspace (mostly L2-resident) and walks the read axis in
-// tiles of one element per thread, carrying the D running max and the
-// predecessor edge from tile to tile; it takes any length.
+// What bounds them: about 21 float operations a cell and one byte a base
+// of input, so the work is operations, not bytes; but each row ends in a
+// max-scan across the pair's threads, so a row is a chain of shuffles (and
+// across warps a barrier) between a few operations per column.  The
+// register variants are bound by instruction issue of that row loop:
+// fewer instructions, as fmaxf's one FMNMX for a compare and select, made
+// them faster, while fewer registers (the block variant at widths the
+// warp variant takes) did not.  The smem and streamed variants wait on
+// their barriers and shared or device memory.
+//
+// pairhmm_resident (K1) comes in three variants, chosen by read width:
+//   warp   (width <= 32*32): one warp a pair, several pairs a block.  Lane
+//          l owns the K columns [l*K, l*K+K) and keeps their M, I, P of the
+//          previous row and their read codes in registers; the left
+//          neighbour's P comes by shuffle.  The scan is 5 shuffle steps and
+//          the band max 5 more; there is no barrier at all.
+//   block  (width <= 512*16): one block of warps a pair, registers as in
+//          the warp variant.  One barrier a row: each warp publishes its
+//          scan total, band partial and its last column's M, I and running
+//          max into slots double-buffered by row parity; after the barrier
+//          a warp scans the partials with one shuffle scan and rebuilds its
+//          left neighbour's P itself, so nothing else crosses warps.
+//   smem   (wider, while M, I, P fit the block's shared memory, ~17.8k
+//          columns): the previous row in shared memory, each thread a
+//          contiguous run of j, two barriers a row.
+// Pass 1 of a row forms M and I (which need only the previous row) and the
+// running max of the D terms; pass 2, after the scan, forms D, the band
+// terms and the new P (the smem variant also the corner term; the register
+// variants rebuild the score after the last row instead).
+//
+// pairhmm_streamed (K2) keeps the rows in a device-memory workspace
+// (mostly L2-resident) and walks the read axis in tiles of one element
+// per thread, carrying the D running max and the predecessor edge from
+// tile to tile; it takes any length.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,6 +158,314 @@ __device__ __forceinline__ void block_scan(float a, float b, float* sh,
   excl = mx(pre, lane == 0 ? -INFINITY : xe);
   tot_a = ta;
   tot_b = tb;
+}
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_PAIRS = 4;           // pairs (warps) a block, warp variant
+constexpr int BLOCK_MAX_THREADS = 512;  // threads a pair, block variant
+
+// The max of the register variants: one FMNMX where mx takes a compare and
+// a select.  Both return one of the operands, the same one wherever no
+// operand is NaN and the two are not zeros of opposite sign, which the DP
+// never forms (every value is a sum of negative logs or -inf), so the bits
+// are the native scorer's.
+__device__ __forceinline__ float fmx(float a, float b) { return fmaxf(a, b); }
+
+// Lane-wide: `excl` = max of `a` over the lanes before this one, `incl`
+// the same with this lane's, `tot_b` = max of `b` over the warp.
+__device__ __forceinline__ void warp_scan(float a, float b, int lane,
+                                          float& excl, float& incl,
+                                          float& tot_b) {
+  float x = a;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x = fmx(x, y);
+    b = fmx(b, __shfl_xor_sync(FULL, b, o));
+  }
+  const float xe = __shfl_up_sync(FULL, x, 1);
+  excl = lane == 0 ? -INFINITY : xe;
+  incl = x;
+  tot_b = b;
+}
+
+// Row 0 of a lane's K columns, and its read codes.
+template <int K>
+__device__ __forceinline__ void rows_init(int j0, int m, const uint8_t* hp,
+                                          int N, const uint8_t* rd,
+                                          uint8_t r0, int n, const Trans& t,
+                                          float (&Mr)[K], float (&Ir)[K],
+                                          float (&Pr)[K], uint8_t (&rc)[K],
+                                          float& out_v) {
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int j = j0 + k;
+    rc[k] = j < m ? rd[j] : (uint8_t)0;
+    float M0, D0, P0;
+    row0_cell(j, hp, N, r0, t, M0, D0, P0);
+    Mr[k] = M0;
+    Ir[k] = NEG;
+    Pr[k] = P0;
+    if (n == 1 && j == m - 1) out_v = fmx(fmx(M0, NEG), D0);
+  }
+}
+
+// Pass 1 of row i over a lane's columns: M and I of the row, in place of
+// the previous row's (I[j] reads the old M[j] and I[j], M[0] the old I[0]),
+// from the previous row's P; `p_in` is P[i-1][j0-1].  Returns the lane's
+// running max of the D terms and, in `pre_last`, the same over all but the
+// last column.  Columns past the read (j >= m) compute values nothing
+// reads: they lie right of every real column.
+template <int K>
+__device__ __forceinline__ float rows_pass1(int j0, int i, uint8_t h,
+                                            float p_in, float col0_emit,
+                                            const Trans& t, float (&Mr)[K],
+                                            float (&Ir)[K],
+                                            const float (&Pr)[K],
+                                            const uint8_t (&rc)[K],
+                                            float& pre_last) {
+  float run = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int j = j0 + k;
+    float Mn, In;
+    if (j == 0) {
+      Mn = (Ir[0] + t.i2m) + col0_emit;
+      In = (MA + t.m2i) + (float)(i - 1) * t.i2i;
+    } else {
+      Mn = (h == rc[k] ? MA : MI) + (k == 0 ? p_in : Pr[k - 1]);
+      In = MA + fmx(Mr[k] + t.m2i, Ir[k] + t.i2i);
+    }
+    Mr[k] = Mn;
+    Ir[k] = In;
+    if (k == K - 1) pre_last = run;
+    run = fmx(run, c_term(Mn, j, t));
+  }
+  return run;
+}
+
+// Pass 2 of row i: D from the scan's `runp` (the max of the D terms left of
+// the lane), the band terms, and the row's P.  Returns the lane's band max
+// (NEG when it has no real column j >= 1).
+template <int K>
+__device__ __forceinline__ float rows_pass2(int j0, int i, int m, int nm,
+                                            float runp, const Trans& t,
+                                            const float (&Mr)[K],
+                                            const float (&Ir)[K],
+                                            float (&Pr)[K]) {
+  float rb = NEG;
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int j = j0 + k;
+    const float Mn = Mr[k];
+    const float In = Ir[k];
+    const float Dn = j == 0 ? NEG : (float)j * t.d2d + runp;
+    runp = fmx(runp, c_term(Mn, j, t));
+    const float best = fmx(fmx(Mn, In), Dn);
+    if (j >= 1 && j < m) rb = fmx(rb, band_cand(best, nm, i, j, t));
+    Pr[k] = fmx(fmx(Mn + t.m2m, Dn + t.d2m), In + t.i2m);
+  }
+  return rb;
+}
+
+// The score, the last row's cell at j = m-1 (pass 2's `best` there), into
+// `out_v` of the lane that owns the column: rebuilt after the row loop from
+// the row's M and I and the lane's scan value `runp`, so that no cell of
+// the loop tests for it.
+template <int K>
+__device__ __forceinline__ void rows_score(int j0, int m, float runp,
+                                           const Trans& t,
+                                           const float (&Mr)[K],
+                                           const float (&Ir)[K],
+                                           float& out_v) {
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int j = j0 + k;
+    if (j == m - 1) {
+      const float Dn = j == 0 ? NEG : (float)j * t.d2d + runp;
+      out_v = fmx(fmx(Mr[k], Ir[k]), Dn);
+    }
+    runp = fmx(runp, c_term(Mr[k], j, t));
+  }
+}
+
+// Warp variant of K1: warp w of block x scores pair x*WARP_PAIRS + w over
+// columns [0, 32*K).  Nothing is shared between warps, so a gated or
+// band-failed pair ends its warp only.
+template <int K>
+__global__ void __launch_bounds__(WARP_PAIRS * 32)
+pairhmm_resident_warp_kernel(const uint8_t* __restrict__ hap,
+                             const uint8_t* __restrict__ read,
+                             const int32_t* __restrict__ hap_len,
+                             const int32_t* __restrict__ read_len,
+                             const int32_t* __restrict__ full_len,
+                             const float* __restrict__ trans, int B, int N,
+                             int Mdim, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARP_PAIRS + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const int n = hap_len[b];
+  const int m_len = read_len[b];
+  float gate_score;
+  if (gated(n, m_len, full_len[b], &gate_score)) {
+    if (lane == 0) out[b] = gate_score;
+    return;
+  }
+  const Trans t = load_trans(trans);
+  const uint8_t* hp = hap + (size_t)b * N;
+  const uint8_t* rd = read + (size_t)b * Mdim;
+  const int m = min(max(m_len, 0), Mdim);
+  const int rows = min(max(n, 0), N);
+  const int nm = n - m_len;
+  const int j0 = lane * K;
+  const uint8_t r0 = rd[0];
+  const uint8_t c0r = (m > 1) ? rd[1] : rd[0];
+  const float col0_emit = hp[0] == c0r ? MA : MI;
+
+  float Mr[K], Ir[K], Pr[K];
+  uint8_t rc[K];
+  float out_v = NEG;
+  rows_init<K>(j0, m, hp, N, rd, r0, n, t, Mr, Ir, Pr, rc, out_v);
+
+  float rb_prev = INFINITY;
+  float runp = -INFINITY;   // the last row's scan value
+  bool failed = false;
+  for (int i = 1; i < rows; i++) {
+    const uint8_t h = hp[i];
+    // lane 0 owns column 0, whose M reads no P
+    const float p_in = __shfl_up_sync(FULL, Pr[K - 1], 1);
+    float pre_last;
+    const float run = rows_pass1<K>(j0, i, h, p_in, col0_emit, t, Mr, Ir,
+                                    Pr, rc, pre_last);
+    float incl, tot_b;
+    warp_scan(run, rb_prev, lane, runp, incl, tot_b);
+    if (tot_b < BAND_THRESH) {
+      failed = true;
+      break;
+    }
+    rb_prev = rows_pass2<K>(j0, i, m, nm, runp, t, Mr, Ir, Pr);
+  }
+  if (!failed && rows >= 2) {
+    float e, x, tb;
+    warp_scan(-INFINITY, rb_prev, lane, e, x, tb);
+    failed = tb < BAND_THRESH;
+    if (rows == n) rows_score<K>(j0, m, runp, t, Mr, Ir, out_v);
+  }
+  const bool owner = m >= 1 ? (j0 <= m - 1 && m - 1 < j0 + K) : lane == 0;
+  if (owner) out[b] = failed ? BAND_FAIL : out_v;
+}
+
+// Block variant of K1: one block of blockDim.x/32 warps a pair, thread
+// t owning the K columns [t*K, t*K+K).  Per row, lane 31 of each warp
+// publishes the warp's scan total and its last column's M, I and running
+// max (the D terms left of that column), lane 0 the warp's band partial,
+// into slots double-buffered by row parity, so one barrier a row
+// suffices: a slot of row i is rewritten at row i+2, after every warp has
+// passed row i+1's barrier.  After the barrier each warp scans the
+// partials with one shuffle scan and rebuilds P[i][j0-1] of its left
+// neighbour's last column from the published M, I and running max.
+template <int K>
+__global__ void __launch_bounds__(BLOCK_MAX_THREADS)
+pairhmm_resident_block_kernel(const uint8_t* __restrict__ hap,
+                              const uint8_t* __restrict__ read,
+                              const int32_t* __restrict__ hap_len,
+                              const int32_t* __restrict__ read_len,
+                              const int32_t* __restrict__ full_len,
+                              const float* __restrict__ trans, int N,
+                              int Mdim, float* __restrict__ out) {
+  __shared__ float s_run[2][32], s_rb[2][32], s_m[2][32], s_i[2][32],
+      s_pre[2][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int b = blockIdx.x;
+  const int n = hap_len[b];
+  const int m_len = read_len[b];
+  float gate_score;
+  if (gated(n, m_len, full_len[b], &gate_score)) {
+    if (threadIdx.x == 0) out[b] = gate_score;
+    return;
+  }
+  const Trans t = load_trans(trans);
+  const uint8_t* hp = hap + (size_t)b * N;
+  const uint8_t* rd = read + (size_t)b * Mdim;
+  const int m = min(max(m_len, 0), Mdim);
+  const int rows = min(max(n, 0), N);
+  const int nm = n - m_len;
+  const int j0 = threadIdx.x * K;
+  const uint8_t r0 = rd[0];
+  const uint8_t c0r = (m > 1) ? rd[1] : rd[0];
+  const float col0_emit = hp[0] == c0r ? MA : MI;
+
+  float Mr[K], Ir[K], Pr[K];
+  uint8_t rc[K];
+  float out_v = NEG;
+  rows_init<K>(j0, m, hp, N, rd, r0, n, t, Mr, Ir, Pr, rc, out_v);
+  // P[i-1][j0-1] for lane 0 of warps after the first; row 0's from the
+  // row itself
+  float p_edge = NEG;
+  if (warp > 0) {
+    float M0, D0, P0;
+    row0_cell(j0 - 1, hp, N, r0, t, M0, D0, P0);
+    p_edge = P0;
+  }
+
+  float rb_prev = INFINITY;
+  float runp = -INFINITY;   // the last row's scan value
+  bool failed = false;
+  int buf = 0;
+  for (int i = 1; i < rows; i++, buf ^= 1) {
+    const uint8_t h = hp[i];
+    const float p_up = __shfl_up_sync(FULL, Pr[K - 1], 1);
+    const float p_in = lane == 0 ? p_edge : p_up;
+    float pre_last;
+    const float run = rows_pass1<K>(j0, i, h, p_in, col0_emit, t, Mr, Ir,
+                                    Pr, rc, pre_last);
+    float excl, incl, wrb;
+    warp_scan(run, rb_prev, lane, excl, incl, wrb);
+    if (lane == 31) {
+      s_run[buf][warp] = incl;
+      s_m[buf][warp] = Mr[K - 1];
+      s_i[buf][warp] = Ir[K - 1];
+      s_pre[buf][warp] = fmx(excl, pre_last);
+    }
+    if (lane == 0) s_rb[buf][warp] = wrb;
+    __syncthreads();
+    float we, wx, tot_b;
+    warp_scan(lane < nw ? s_run[buf][lane] : -INFINITY,
+              lane < nw ? s_rb[buf][lane] : -INFINITY, lane, we, wx, tot_b);
+    if (tot_b < BAND_THRESH) {
+      failed = true;
+      break;
+    }
+    // the max of the D terms of the warps left of this one, and of those
+    // left of the previous warp
+    const float left = __shfl_sync(FULL, we, warp);
+    const float left_prev = __shfl_sync(FULL, we, warp > 0 ? warp - 1 : 0);
+    runp = fmx(left, excl);
+    rb_prev = rows_pass2<K>(j0, i, m, nm, runp, t, Mr, Ir, Pr);
+    if (warp > 0) {
+      const int jl = j0 - 1;   // >= 31: never column 0
+      const float Ml = s_m[buf][warp - 1];
+      const float Il = s_i[buf][warp - 1];
+      const float Dl = (float)jl * t.d2d + fmx(left_prev, s_pre[buf][warp - 1]);
+      p_edge = fmx(fmx(Ml + t.m2m, Dl + t.d2m), Il + t.i2m);
+    }
+  }
+  if (!failed && rows >= 2) {
+    float e, x, wrb;
+    warp_scan(-INFINITY, rb_prev, lane, e, x, wrb);
+    if (lane == 0) s_rb[buf][warp] = wrb;
+    __syncthreads();
+    float we, wx, tot_b;
+    warp_scan(-INFINITY, lane < nw ? s_rb[buf][lane] : -INFINITY, lane, we,
+              wx, tot_b);
+    failed = tot_b < BAND_THRESH;
+    if (rows == n) rows_score<K>(j0, m, runp, t, Mr, Ir, out_v);
+  }
+  const bool owner = m >= 1 ? (j0 <= m - 1 && m - 1 < j0 + K)
+                            : threadIdx.x == 0;
+  if (owner) out[b] = failed ? BAND_FAIL : out_v;
 }
 
 // Resident kernel: the previous row's M, I and fused predecessor P, and
@@ -357,6 +689,18 @@ pairhmm_streamed_kernel(const uint8_t* __restrict__ hap,
   if (owner) out[b] = failed ? BAND_FAIL : out_v;
 }
 
+template <int K>
+int launch_warp(const uint8_t* hap, const uint8_t* read,
+                       const int32_t* hap_len, const int32_t* read_len,
+                       const int32_t* full_len, const float* trans, int B,
+                       int N, int Mdim, float* out, void* stream) {
+  const int grid = (B + WARP_PAIRS - 1) / WARP_PAIRS;
+  pairhmm_resident_warp_kernel<K><<<grid, WARP_PAIRS * 32, 0,
+                                    (cudaStream_t)stream>>>(
+      hap, read, hap_len, read_len, full_len, trans, B, N, Mdim, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -375,6 +719,49 @@ int pairhmm_max_smem_optin(int device, int* bytes) {
 
 // All pointers are device pointers; hap (B, N) and read (B, Mdim) uint8
 // row-major; lengths (B,) int32; trans (7,) float32; out (B,) float32.
+
+// Warp variant: K, the columns a lane, is the least instantiated value
+// with 32*K >= Mdim.
+int pairhmm_resident_warp(const uint8_t* hap, const uint8_t* read,
+                          const int32_t* hap_len, const int32_t* read_len,
+                          const int32_t* full_len, const float* trans, int B,
+                          int N, int Mdim, float* out, void* stream) {
+  const int need = (Mdim + 31) / 32;
+#define LTR_WARP(K)                                                        \
+  if (need <= K)                                                           \
+    return launch_warp<K>(hap, read, hap_len, read_len, full_len, trans, B, \
+                          N, Mdim, out, stream);
+  LTR_WARP(2)
+  LTR_WARP(4)
+  LTR_WARP(6)
+  LTR_WARP(8)
+  LTR_WARP(12)
+  LTR_WARP(16)
+  LTR_WARP(24)
+  LTR_WARP(32)
+#undef LTR_WARP
+  return (int)cudaErrorInvalidValue;
+}
+
+// Block variant: 8 columns a thread up to 8*512 columns, else 16; as many
+// whole warps as the width needs.
+int pairhmm_resident_block(const uint8_t* hap, const uint8_t* read,
+                           const int32_t* hap_len, const int32_t* read_len,
+                           const int32_t* full_len, const float* trans, int B,
+                           int N, int Mdim, float* out, void* stream) {
+  if (Mdim > BLOCK_MAX_THREADS * 16) return (int)cudaErrorInvalidValue;
+  const int K = Mdim <= BLOCK_MAX_THREADS * 8 ? 8 : 16;
+  const int threads = ((Mdim + K - 1) / K + 31) / 32 * 32;
+  if (K == 8)
+    pairhmm_resident_block_kernel<8><<<B, threads, 0, (cudaStream_t)stream>>>(
+        hap, read, hap_len, read_len, full_len, trans, N, Mdim, out);
+  else
+    pairhmm_resident_block_kernel<16><<<B, threads, 0, (cudaStream_t)stream>>>(
+        hap, read, hap_len, read_len, full_len, trans, N, Mdim, out);
+  return (int)cudaGetLastError();
+}
+
+// Shared-memory variant.
 int pairhmm_resident(const uint8_t* hap, const uint8_t* read,
                      const int32_t* hap_len, const int32_t* read_len,
                      const int32_t* full_len, const float* trans, int B,

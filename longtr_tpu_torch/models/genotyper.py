@@ -17,7 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from longtr_tpu_torch.ops.posterior import NEG_HALF_DBL_MAX
-from longtr_tpu.utils.mathops import (LOG_E_BASE_10, TOLERANCE,
+from longtr_tpu_torch.utils.mathops import (LOG_E_BASE_10, TOLERANCE,
                                       fast_log_sum_exp2, int_log,
                                       log_sum_exp2)
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` (the pair-HMM kernels and the mode-B row DP) exposes a
-plain C interface, so one ``nvcc`` call compiles them all into one shared
-library, bound with ``ctypes``: no torch headers, no ``ninja``.  The build
+plain C interface, so ``nvcc`` compiles each into an object, all at once,
+and links them into one shared library, bound with ``ctypes``: no torch
+headers, no ``ninja``.  The build
 runs at first use, into ``longtr_tpu_torch/_build/``, and is keyed by a
 hash of every source and the flags, so an edited source rebuilds and an
 unchanged tree loads at once.  Any failure (no ``nvcc``, a compile error,
@@ -31,8 +32,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # (built with -ffp-contract=off for the same reason).
 NVCC_FLAGS = ("-O3", "-std=c++17",
               "-gencode", "arch=compute_90a,code=sm_90a",
-              "--fmad=false", "-Xptxas", "-v",
-              "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -50,23 +50,33 @@ def find_nvcc() -> str:
                        "be built")
 
 
+def _run(cmds):
+    """Run the commands at once; raise with the first failure's output.
+    Returns their standard error, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (_o, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(c[0])} failed "
+                               f"({p.returncode}):\n{err}")
+    return [err for _o, err in outs]
+
+
 def _build(out_path: str) -> None:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.time()
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, out_path)   # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_info.update(seconds=time.time() - t0, report=proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in SOURCES]
+        reports = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                        for src, obj in zip(SOURCES, objs)])
+        so = os.path.join(tmp, "lib.so")
+        _run([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", so, *objs]])
+        os.replace(so, out_path)   # atomic: concurrent builders agree
+    build_info.update(seconds=time.time() - t0, report="".join(reports))
 
 
 def _bind(lib) -> None:
@@ -77,6 +87,10 @@ def _bind(lib) -> None:
     lib.pairhmm_max_smem_optin.restype = i
     lib.pairhmm_resident.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
     lib.pairhmm_resident.restype = i
+    for name in ("pairhmm_resident_warp", "pairhmm_resident_block"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, p, p]
+        fn.restype = i
     lib.pairhmm_streamed.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p]
     lib.pairhmm_streamed.restype = i
     lib.mode_b_smem_bytes.argtypes = [i]

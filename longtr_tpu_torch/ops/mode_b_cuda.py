@@ -23,8 +23,8 @@ import ctypes
 import numpy as np
 import torch
 
-from longtr_tpu.ops.stutter_hmm import IMPOSSIBLE
-from longtr_tpu.utils.mathops import LOG_THRESH
+from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE
+from longtr_tpu_torch.utils.mathops import LOG_THRESH
 from longtr_tpu_torch.ops import _build
 from longtr_tpu_torch.ops.mode_b_device import mode_b_cols_plain
 from longtr_tpu_torch.ops.pairhmm_cuda import (_ptr, _raise_on, _stream,

@@ -26,8 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from longtr_tpu.ops.stutter_hmm import IMPOSSIBLE
-from longtr_tpu.utils.mathops import LOG_THRESH
+from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE
+from longtr_tpu_torch.utils.mathops import LOG_THRESH
 
 # Elements (read segment × config × side, padding included) scored per
 # route: "cuda" and "cpu" by mode_b_cols, "host_f64" by the host numpy path

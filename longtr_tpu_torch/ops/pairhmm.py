@@ -19,7 +19,7 @@ D[i,j] = j*d2d + max_{k<=j-1} c[k].  :func:`pairhmm_scan` computes that as
 one ``torch.cummax`` per row.  It is the plain version of the two CUDA
 kernels in :mod:`longtr_tpu_torch.ops.pairhmm_cuda`: both give the same
 float32 bits, and so does the native C++ scorer
-(``longtr_tpu.native.pairhmm_batch_native``).  Bit identity holds because
+(``longtr_tpu_torch.native.pairhmm_batch_native``).  Bit identity holds because
 every value is built from float32 adds, integer-valued products and max,
 evaluated in one fixed order with no fused multiply-add.
 
@@ -342,16 +342,16 @@ def pairhmm_batch_auto(hap_codes, hap_lens, read_codes, read_lens,
       stream; returns a float32 tensor on the card without synchronising;
     * the CPU: the plain torch scan; returns a float32 CPU tensor.
     """
-    from longtr_tpu.utils import mathops
+    from longtr_tpu_torch.utils import mathops
     hap, hl, read, rl, fl = _check_batch(hap_codes, hap_lens, read_codes,
                                          read_lens, full_hap_lens)
     if mathops.ref_fidelity():
-        from longtr_tpu import native
+        from longtr_tpu_torch import native
         out = native.pairhmm_batch_native_f64(hap, hl, read, rl, fl,
                                               params.as_array())
         if out is None:
             raise RuntimeError("--ref-fidelity needs the native library "
-                               "(longtr_tpu/native), which failed to load")
+                               "(longtr_tpu_torch/native), which failed to load")
         pairs_scored["host_f64"] += hap.shape[0]
         return out
     if mesh is not None and mesh.size > 1:

@@ -2,11 +2,14 @@
 
 Port of :mod:`longtr_tpu.ops.pairhmm_pallas`:
 
-* :func:`pairhmm_resident` replaces ``_kernel`` (``_pallas_call``): one
-  block per pair, the previous row's M, I and fused predecessor in shared
-  memory.  It takes a batch whose read width fits one block's shared
-  memory (about 17k columns on an H100).
-* :func:`pairhmm_streamed` replaces ``_kernel_chunked``
+* :func:`pairhmm_resident` (K1) replaces ``_kernel`` (``_pallas_call``).
+  It routes a batch by read width to one of three variants:
+  :func:`pairhmm_resident_warp` (one warp a pair, the rows in registers;
+  up to ``WARP_MAX_WIDTH`` columns), :func:`pairhmm_resident_block` (one
+  block of warps a pair, the rows in registers; up to
+  ``BLOCK_MAX_WIDTH``) and :func:`pairhmm_resident_smem` (one block a
+  pair, the rows in shared memory; up to about 17.8k columns on an H100).
+* :func:`pairhmm_streamed` (K2) replaces ``_kernel_chunked``
   (``_pallas_call_chunked``): the rows live in a device-memory workspace
   and the read axis is walked in tiles.  It takes any width, so no pair is
   sent to the host for being long.
@@ -27,16 +30,25 @@ import torch
 from longtr_tpu_torch.ops import _build
 from longtr_tpu_torch.ops.pairhmm import pairhmm_scan
 
-# Kernel launches per wrapper; chip_smoke.py zeroes and reads these.
-launches = {"pairhmm_resident": 0, "pairhmm_streamed": 0}
+# Kernel launches per variant; chip_smoke.py zeroes and reads these.
+launches = {"pairhmm_resident_warp": 0, "pairhmm_resident_block": 0,
+            "pairhmm_resident_smem": 0, "pairhmm_streamed": 0}
+
+# The widest reads the register variants take (csrc/pairhmm.cu: 32 lanes
+# of at most 32 columns; 512 threads of at most 16), whose C entries refuse
+# wider ones.  Module attributes, so that a test can lower them to send a
+# width to the next variant.
+WARP_MAX_WIDTH = 32 * 32
+BLOCK_MAX_WIDTH = 512 * 16
 
 # Bound on the streamed kernel's workspace per launch; larger batches are
 # split.  At an 8 kb read width this is about 11k pairs per launch.
 STREAMED_WORKSPACE_BYTES = 1 << 30
 STREAMED_THREADS = 512
 
-# Test hook: when set, batches whose resident shared-memory footprint
-# exceeds this many bytes go to the streamed kernel even if they would fit.
+# Test hook: when set, batches whose shared-memory variant's footprint
+# exceeds this many bytes go to the streamed kernel even if they would fit,
+# whatever K1 variant their width would take.
 resident_limit_bytes = None
 
 
@@ -45,7 +57,7 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _resident_threads(Mdim: int) -> int:
+def _smem_threads(Mdim: int) -> int:
     """About four columns per thread, in whole warps, at most 1024."""
     per = -(-Mdim // 4)
     return min(1024, max(32, -(-per // 32) * 32))
@@ -119,28 +131,77 @@ def resident_fits(Mdim: int, device) -> bool:
     return need <= max_smem_optin(device)
 
 
-def pairhmm_resident(hap, hap_len, read, read_len, full_len, trans,
-                     threads: int | None = None):
-    """Mode-A scores of a (B, N) x (B, M) batch; the resident kernel."""
-    if hap.device.type == "cpu":
-        return pairhmm_scan(hap, hap_len, read, read_len, full_len, trans)
-    threads = threads or _resident_threads(read.shape[1])
-    B, N, M = _check(hap, hap_len, read, read_len, full_len, trans, threads)
+def _launch(name, fn, hap, hap_len, read, read_len, full_len, trans,
+            threads=None):
+    """Check the batch, launch ``lib.<fn>`` on it (with ``threads`` when
+    the kernel takes a block size), count the launch."""
+    B, N, M = _check(hap, hap_len, read, read_len, full_len, trans,
+                     threads or 32)
+    extra = () if threads is None else (threads,)
     out = torch.empty(B, dtype=torch.float32, device=hap.device)
     if B == 0:
         return out
-    if not resident_fits(M, hap.device):
-        raise ValueError(f"read width {M} does not fit the resident "
-                         "kernel's shared memory; use pairhmm_streamed")
     lib = _build.load_library()
     with torch.cuda.device(hap.device):
-        rc = lib.pairhmm_resident(
+        rc = getattr(lib, fn)(
             _ptr(hap), _ptr(read), _ptr(hap_len), _ptr(read_len),
-            _ptr(full_len), _ptr(trans), B, N, M, threads, _ptr(out),
+            _ptr(full_len), _ptr(trans), B, N, M, *extra, _ptr(out),
             _stream(hap.device))
-    _raise_on(rc, "pairhmm_resident")
-    launches["pairhmm_resident"] += 1
+    _raise_on(rc, name)
+    launches[name] += 1
     return out
+
+
+def pairhmm_resident_warp(hap, hap_len, read, read_len, full_len, trans):
+    """K1, warp variant: one warp a pair, up to ``WARP_MAX_WIDTH`` columns."""
+    if hap.device.type == "cpu":
+        return pairhmm_scan(hap, hap_len, read, read_len, full_len, trans)
+    if read.shape[1] > WARP_MAX_WIDTH:
+        raise ValueError(f"read width {read.shape[1]} exceeds the warp "
+                         f"variant's {WARP_MAX_WIDTH} columns")
+    return _launch("pairhmm_resident_warp", "pairhmm_resident_warp", hap,
+                   hap_len, read, read_len, full_len, trans)
+
+
+def pairhmm_resident_block(hap, hap_len, read, read_len, full_len, trans):
+    """K1, block variant: one block of warps a pair, up to
+    ``BLOCK_MAX_WIDTH`` columns."""
+    if hap.device.type == "cpu":
+        return pairhmm_scan(hap, hap_len, read, read_len, full_len, trans)
+    if read.shape[1] > BLOCK_MAX_WIDTH:
+        raise ValueError(f"read width {read.shape[1]} exceeds the block "
+                         f"variant's {BLOCK_MAX_WIDTH} columns")
+    return _launch("pairhmm_resident_block", "pairhmm_resident_block", hap,
+                   hap_len, read, read_len, full_len, trans)
+
+
+def pairhmm_resident_smem(hap, hap_len, read, read_len, full_len, trans,
+                          threads: int | None = None):
+    """K1, shared-memory variant: one block a pair, the rows in shared
+    memory, any width that fits it."""
+    if hap.device.type == "cpu":
+        return pairhmm_scan(hap, hap_len, read, read_len, full_len, trans)
+    if hap.device.type == "cuda" and not resident_fits(read.shape[1],
+                                                       hap.device):
+        raise ValueError(f"read width {read.shape[1]} does not fit the "
+                         "resident kernel's shared memory; use "
+                         "pairhmm_streamed")
+    return _launch("pairhmm_resident_smem", "pairhmm_resident", hap, hap_len,
+                   read, read_len, full_len, trans,
+                   threads or _smem_threads(read.shape[1]))
+
+
+def pairhmm_resident(hap, hap_len, read, read_len, full_len, trans):
+    """Mode-A scores of a (B, N) x (B, M) batch; K1, its variant chosen by
+    the read width M."""
+    M = read.shape[1]
+    if M <= WARP_MAX_WIDTH:
+        return pairhmm_resident_warp(hap, hap_len, read, read_len, full_len,
+                                     trans)
+    if M <= BLOCK_MAX_WIDTH:
+        return pairhmm_resident_block(hap, hap_len, read, read_len, full_len,
+                                      trans)
+    return pairhmm_resident_smem(hap, hap_len, read, read_len, full_len, trans)
 
 
 def pairhmm_streamed(hap, hap_len, read, read_len, full_len, trans,
@@ -173,9 +234,9 @@ def pairhmm_streamed(hap, hap_len, read, read_len, full_len, trans,
 
 
 def pairhmm_batch(hap, hap_len, read, read_len, full_len, trans):
-    """Route a batch: the resident kernel when its read width fits one
-    block's shared memory, the streamed kernel otherwise.  CPU tensors take
-    the plain scan."""
+    """Route a batch: K1 (:func:`pairhmm_resident`) when its read width
+    fits one block's shared memory, the streamed kernel otherwise.  CPU
+    tensors take the plain scan."""
     if hap.device.type == "cpu":
         return pairhmm_scan(hap, hap_len, read, read_len, full_len, trans)
     if not resident_fits(read.shape[1], hap.device):

@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from longtr_tpu.utils.mathops import LOG_ONE_HALF, int_log
+from longtr_tpu_torch.utils.mathops import LOG_ONE_HALF, int_log
 
 LL_CLAMP = -600.0
 # The reference uses -DBL_MAX/2 for impossible haploid heterozygotes

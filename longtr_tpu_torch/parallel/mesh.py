@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from longtr_tpu.utils.mathops import LOG_ONE_HALF
+from longtr_tpu_torch.utils.mathops import LOG_ONE_HALF
 from longtr_tpu_torch.ops.pairhmm import (AlignmentParams, _check_batch,
                                           pairhmm_batch_auto)
 from longtr_tpu_torch.ops.posterior import LL_CLAMP

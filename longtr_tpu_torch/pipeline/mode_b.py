@@ -25,9 +25,9 @@ import time
 import numpy as np
 import torch
 
-from longtr_tpu.ops.stutter_hmm import IMPOSSIBLE, MIN_SEED_DIST, StutterAligner, fast_lse
-from longtr_tpu.utils.base_quality import log_prob_correct, log_prob_error
-from longtr_tpu.utils.mathops import int_log
+from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE, MIN_SEED_DIST, StutterAligner, fast_lse
+from longtr_tpu_torch.utils.base_quality import log_prob_correct, log_prob_error
+from longtr_tpu_torch.utils.mathops import int_log
 from longtr_tpu_torch.ops.mode_b_device import _pad_to, mode_b_cols
 from longtr_tpu_torch.ops.pairhmm import AlignmentParams
 
@@ -40,7 +40,7 @@ class _RevRepeatInfo:
 
 def reverse_blocks(blocks):
     """Reversed haplotype blocks (HapBlock::reverse / RepeatBlock::reverse)."""
-    from longtr_tpu.haplotype.blocks import HapBlock, RepeatBlock
+    from longtr_tpu_torch.haplotype.blocks import HapBlock, RepeatBlock
     out = []
     for b in blocks:
         if b.repeat_info is not None:

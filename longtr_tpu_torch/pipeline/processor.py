@@ -28,38 +28,20 @@ from dataclasses import dataclass
 
 import torch
 
-from longtr_tpu.config import Config
-from longtr_tpu.io.fasta import FastaReader
-from longtr_tpu.io.vcf import VCFWriter
-from longtr_tpu.models.stutter import StutterModel, default_stutter_model
-from longtr_tpu.pipeline.alignment import extract_cigar, left_align_reads
-from longtr_tpu.pipeline.filters import read_and_filter_reads
-from longtr_tpu.pipeline.phasing import phased_bam_factors, unphased_factors
-from longtr_tpu.regions import RegionGroup, order_regions, read_regions
-from longtr_tpu.utils.timers import ProcessTimer
+from longtr_tpu_torch.config import Config
+from longtr_tpu_torch.io.fasta import FastaReader
+from longtr_tpu_torch.io.vcf import VCFWriter
+from longtr_tpu_torch.models.stutter import StutterModel, default_stutter_model
+from longtr_tpu_torch.pipeline.alignment import extract_cigar, left_align_reads
+from longtr_tpu_torch.pipeline.filters import read_and_filter_reads
+from longtr_tpu_torch.pipeline.phasing import phased_bam_factors, unphased_factors
+from longtr_tpu_torch.regions import RegionGroup, order_regions, read_regions
+from longtr_tpu_torch.utils.timers import ProcessTimer
 from longtr_tpu_torch.models.em import EMStutterGenotyper
 from longtr_tpu_torch.ops.pairhmm import AlignmentParams, pairhmm_batch_auto
 from longtr_tpu_torch.pipeline.seq_genotyper import (SeqStutterGenotyper,
                                                      score_pairs_async)
-from longtr_tpu_torch.pipeline.vcf_record import (OutputFlags, get_vcf_header,
-                                                  write_vcf_record)
-
-
-def output_flags(cfg: Config) -> OutputFlags:
-    """The VCF output flags of a run.
-
-    ``Config.output_flags()`` builds them from ``longtr_tpu``'s vcf_record,
-    which imports JAX; this builds the same object from the port's."""
-    f = OutputFlags()
-    f.gls = cfg.output_gls
-    f.pls = cfg.output_pls
-    f.phased_gls = cfg.output_phased_gls
-    f.allreads = cfg.output_allreads
-    f.mallreads = cfg.output_mallreads
-    f.filters = cfg.output_filters
-    f.haplotype_data = cfg.output_haplotype_data
-    f.max_flank_indel_frac = cfg.max_flank_indel_frac
-    return f
+from longtr_tpu_torch.pipeline.vcf_record import get_vcf_header, write_vcf_record
 
 
 @dataclass
@@ -158,7 +140,7 @@ class GenotyperPipeline:
         regions = order_regions(read_regions(region_file, max_regions, chrom,
                                              self.full_log))
         if shard is not None:
-            from longtr_tpu.parallel.multihost import shard_regions
+            from longtr_tpu_torch.parallel.multihost import shard_regions
             regions = shard_regions(regions, shard[1], shard[0], shard[2])
         fasta = FastaReader(fasta_file)
 
@@ -176,7 +158,7 @@ class GenotyperPipeline:
             header = get_vcf_header(fasta_file, full_command,
                                     fasta.contig_header_lines(),
                                     self.samples_to_genotype,
-                                    output_flags(self.config))
+                                    self.config.output_flags())
             self.vcf_writer.write_header(header)
 
         cur_chrom = None
@@ -221,7 +203,7 @@ class GenotyperPipeline:
                 unpaired = [unpaired[i] for i in keep]
 
             if cfg.remove_pcr_dups:
-                from longtr_tpu.pipeline.pcr_duplicates import remove_pcr_duplicates
+                from longtr_tpu_torch.pipeline.pcr_duplicates import remove_pcr_duplicates
                 remove_pcr_duplicates(self.use_bam_rgs, rg_to_library,
                                       paired, mates, unpaired, self.sel_log)
 
@@ -231,7 +213,7 @@ class GenotyperPipeline:
                     paired, mates, unpaired, rg_names,
                     cfg.from_hap_ll, cfg.other_hap_ll, self.sel_log)
             elif self.snp_vcf is not None:
-                from longtr_tpu.pipeline.snp_phasing import snp_vcf_factors
+                from longtr_tpu_torch.pipeline.snp_phasing import snp_vcf_factors
                 if self.snp_tracker is not None:
                     # snp_bam_processor.cpp:54-57: slide the pedigree SNP
                     # haplotype window to the current locus.
@@ -357,7 +339,7 @@ class GenotyperPipeline:
         def _build():
             # pure given its inputs: log lines buffer and replay in locus
             # order at dispatch, so parallel builds keep output identical
-            from longtr_tpu.utils.workers import locus_worker_scope
+            from longtr_tpu_torch.utils.workers import locus_worker_scope
             logbuf = []
             t_b = time.time()
             with locus_worker_scope():
@@ -401,7 +383,7 @@ class GenotyperPipeline:
         if self._builders is None:
             from concurrent.futures import ThreadPoolExecutor
 
-            from longtr_tpu.utils.workers import available_cores
+            from longtr_tpu_torch.utils.workers import available_cores
             self._builders = ThreadPoolExecutor(
                 max_workers=min(4, available_cores()),
                 thread_name_prefix="longtr-hapgen")
@@ -519,10 +501,10 @@ class GenotyperPipeline:
             if gt.genotype_finalize(initial_posterior=initial.get(idx)):
                 self.stats.num_genotype_success += 1
                 write_vcf_record(gt, self.samples_to_genotype,
-                                 output_flags(cfg), self.vcf_writer,
+                                 cfg.output_flags(), self.vcf_writer,
                                  self.sel_log)
                 if self.viz_out is not None:
-                    from longtr_tpu.pipeline.viz import write_viz_record
+                    from longtr_tpu_torch.pipeline.viz import write_viz_record
                     for region in group.regions:
                         write_viz_record(self.viz_out, region,
                                          gt.sample_names,

@@ -35,8 +35,8 @@ import os
 import numpy as np
 import torch
 
-from longtr_tpu.haplotype.blocks import Haplotype
-from longtr_tpu.haplotype.generator import HaplotypeGenerator, REF_FLANK_LEN
+from longtr_tpu_torch.haplotype.blocks import Haplotype
+from longtr_tpu_torch.haplotype.generator import HaplotypeGenerator, REF_FLANK_LEN
 from longtr_tpu_torch.ops import pairhmm
 from longtr_tpu_torch.ops.posterior import genotype_log_priors
 
@@ -531,7 +531,7 @@ class SeqStutterGenotyper:
                     by_sample[self.sample_label[i]].append(aln)
             vcf_alleles = []
             if self.ref_vcf is not None:
-                from longtr_tpu.io.vcf_input import read_vcf_alleles
+                from longtr_tpu_torch.io.vcf_input import read_vcf_alleles
                 ok, pos, vcf_alleles = read_vcf_alleles(self.ref_vcf, region)
                 if not ok:
                     self.logger("Haplotype construction failed: alleles not in ref VCF")
@@ -577,7 +577,7 @@ class SeqStutterGenotyper:
         ``LONGTR_MODE_B_HOST=1`` and configs outside the row tables'
         envelope score on the host in f64 instead.
         """
-        from longtr_tpu.utils import mathops
+        from longtr_tpu_torch.utils import mathops
         from longtr_tpu_torch.ops.mode_b_device import mode_b_elements_scored
         from longtr_tpu_torch.pipeline.mode_b import (ModeBAligner,
                                                       calc_seed_base)
@@ -624,8 +624,8 @@ class SeqStutterGenotyper:
         The per-locus tensors are tiny (R×A²); host numpy avoids a device
         round-trip.
         """
-        from longtr_tpu.utils import mathops
-        from longtr_tpu.utils.mathops import LOG_ONE_HALF
+        from longtr_tpu_torch.utils import mathops
+        from longtr_tpu_torch.utils.mathops import LOG_ONE_HALF
         prior = genotype_log_priors(self.num_alleles, self.haploid)
         # The reference clamps the LL array IN PLACE as it reads it
         # (genotyper.cpp:57-58; SURVEY §7.5) — downstream per-read stats
@@ -745,7 +745,7 @@ class SeqStutterGenotyper:
                         f"({self.haplotype.num_combs()} > {max_total_haplotypes})")
             return False, None
         if not self.skip_assembly:
-            from longtr_tpu.haplotype.debruijn import calc_kmer_length
+            from longtr_tpu_torch.haplotype.debruijn import calc_kmer_length
             for bi in (0, self.haplotype.num_blocks() - 1):
                 ref_seq = self.haplotype.get_block(bi).get_seq(0)
                 max_k = min(15, len(ref_seq) - 1 if ref_seq else -1)

@@ -23,9 +23,9 @@ from __future__ import annotations
 import numpy as np
 
 from longtr_tpu_torch.models.genotyper import extract_genotypes_and_likelihoods
-from longtr_tpu.pipeline.alignment import extract_cigar
-from longtr_tpu.utils.mathops import TOLERANCE
-from longtr_tpu.utils.stringops import (condense_read_counts,
+from longtr_tpu_torch.pipeline.alignment import extract_cigar
+from longtr_tpu_torch.utils.mathops import TOLERANCE
+from longtr_tpu_torch.utils.stringops import (condense_read_counts,
                                         order_by_length_and_sequence)
 
 # Genotyper static output flags (genotyper.cpp:339-346)

@@ -9,15 +9,19 @@ the suite's JAX conftest switched off:
 
 Without a card its tests skip.  It also holds the seeded batches that
 tests/test_torch_pairhmm.py and tests/test_torch_mode_b.py feed to the
-plain versions and to longtr_tpu's scorers on the CPU.
+plain versions and to longtr_tpu's scorers on the CPU; the mode-B
+fixtures build their haplotypes and reads from the classes they are given
+(the port's by default), so that each package scores its own objects.
 """
+
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from longtr_tpu import native
-from longtr_tpu.ops.stutter_hmm import IMPOSSIBLE
+from longtr_tpu_torch import native
+from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE
 from longtr_tpu_torch.ops import mode_b_cuda
 from longtr_tpu_torch.ops import mode_b_device
 from longtr_tpu_torch.ops import pairhmm as port
@@ -131,12 +135,38 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
+def k1_variants(width):
+    """The K1 variants that take a read width, by launch-count name."""
+    pc = pairhmm_cuda
+    out = {}
+    if width <= pc.WARP_MAX_WIDTH:
+        out["pairhmm_resident_warp"] = pc.pairhmm_resident_warp
+    if width <= pc.BLOCK_MAX_WIDTH:
+        out["pairhmm_resident_block"] = pc.pairhmm_resident_block
+    out["pairhmm_resident_smem"] = pc.pairhmm_resident_smem
+    return out
+
+
+def _width_batch(width, B=8, seed=0):
+    """B pairs padded to read width `width`, the first nearly that long and
+    the rest shorter, so a batch at a wide edge stays cheap."""
+    rng = np.random.default_rng(seed + width)
+    pairs = []
+    for k in range(B):
+        n = width - int(rng.integers(0, 20)) if k < 2 else int(
+            rng.integers(40, 200))
+        hap = _rand(rng, n)
+        pairs.append((hap, _mutate(rng, hap, 0.01, 0.004)[:width]))
+    return _encode(pairs, M=width)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_cuda_kernels_bit_identical(cuda_device, case):
-    """Both kernels, at their default and at small thread counts (so short
-    pairs span several segments and tiles), equal the plain scan on the CPU
-    and the native scorer bit for bit."""
+    """Every K1 variant that takes the width, the smem variant and the
+    streamed kernel also at small thread counts (so short pairs span
+    several segments and tiles), equal the plain scan on the CPU and the
+    native scorer bit for bit."""
     batch, params = CASES[case]()
     trans = (port.AlignmentParams.from_list(params) if params
              else port.AlignmentParams()).as_array()
@@ -147,8 +177,9 @@ def test_cuda_kernels_bit_identical(cuda_device, case):
     assert np.array_equal(want, nat)
     g = [torch.from_numpy(a).to(cuda_device) for a in (*batch, trans)]
     outs = [pairhmm_cuda.pairhmm_batch(*g), port.pairhmm_scan(*g)]
+    outs += [fn(*g) for fn in k1_variants(batch[2].shape[1]).values()]
     for threads in (None, 32, 64):
-        outs.append(pairhmm_cuda.pairhmm_resident(*g, threads=threads))
+        outs.append(pairhmm_cuda.pairhmm_resident_smem(*g, threads=threads))
         outs.append(pairhmm_cuda.pairhmm_streamed(*g, threads=threads))
     torch.cuda.synchronize()
     for out in outs:
@@ -157,21 +188,53 @@ def test_cuda_kernels_bit_identical(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("width", [64, 65, 128, 129, 192, 193, 256, 257,
+                                   384, 385, 512, 513, 768, 769, 1024, 1025,
+                                   4096, 4097, 8192, 8193])
+def test_k1_variants_at_width_edges(cuda_device, width):
+    """At each register variant's edges (32*K and 32*K+1 columns, warp to
+    block, 8 to 16 columns a thread, block to smem) every K1 variant that
+    takes the width equals the plain scan and the native scorer, and each
+    launch is counted once under its variant's name."""
+    batch = _width_batch(width)
+    trans = port.AlignmentParams().as_array()
+    want = native.pairhmm_batch_native(*batch, trans)
+    g = [torch.from_numpy(a).to(cuda_device) for a in (*batch, trans)]
+    assert np.array_equal(port.pairhmm_scan(*g).cpu().numpy(), want)
+    for name, fn in k1_variants(width).items():
+        before = dict(pairhmm_cuda.launches)
+        out = fn(*g)
+        torch.cuda.synchronize()
+        assert np.array_equal(out.cpu().numpy(), want), (width, name)
+        assert {k: v - before[k] for k, v in pairhmm_cuda.launches.items()
+                } == {k: int(k == name) for k in pairhmm_cuda.launches}
+
+
+@pytest.mark.gpu
 def test_cuda_routing(cuda_device, monkeypatch):
-    """pairhmm_batch sends a width that fits the resident kernel's shared
-    memory there and a wider one to the streamed kernel."""
+    """pairhmm_batch sends a width to K1's variant for it (warp, block or
+    smem, by the width thresholds) while it fits the smem variant's shared
+    memory, and to the streamed kernel past that."""
     batch, _ = CASES["padded"]()
     trans = port.AlignmentParams().as_array()
     g = [torch.from_numpy(a).to(cuda_device) for a in (*batch, trans)]
     width = batch[2].shape[1]
     assert pairhmm_cuda.resident_fits(width, cuda_device)
-    for limit, kernel in ((None, "pairhmm_resident"),
-                          (pairhmm_cuda.resident_smem_bytes(width) - 1,
-                           "pairhmm_streamed")):
+    for warp_max, block_max, limit, kernel in (
+            (None, None, None, "pairhmm_resident_warp"),
+            (width - 1, None, None, "pairhmm_resident_block"),
+            (width - 1, width - 1, None, "pairhmm_resident_smem"),
+            (None, None, pairhmm_cuda.resident_smem_bytes(width) - 1,
+             "pairhmm_streamed")):
+        if warp_max is not None:
+            monkeypatch.setattr(pairhmm_cuda, "WARP_MAX_WIDTH", warp_max)
+        if block_max is not None:
+            monkeypatch.setattr(pairhmm_cuda, "BLOCK_MAX_WIDTH", block_max)
         monkeypatch.setattr(pairhmm_cuda, "resident_limit_bytes", limit)
         pairhmm_cuda.reset_launches()
         out = pairhmm_cuda.pairhmm_batch(*g)
         torch.cuda.synchronize()
+        monkeypatch.undo()
         assert pairhmm_cuda.launches == {
             k: int(k == kernel) for k in pairhmm_cuda.launches}
         assert np.array_equal(out.cpu().numpy(),
@@ -183,27 +246,40 @@ def test_cuda_routing(cuda_device, monkeypatch):
 # rebuilt here without JAX) and synthetic row tables.
 # ---------------------------------------------------------------------------
 
+def port_classes():
+    """The port's classes that the mode-B fixtures build their objects of."""
+    from longtr_tpu_torch.haplotype.blocks import HapBlock, Haplotype, RepeatBlock
+    from longtr_tpu_torch.models.stutter import default_stutter_model
+    from longtr_tpu_torch.pipeline.alignment import Alignment
+    from longtr_tpu_torch.pipeline.mode_b import calc_seed_base
+    return types.SimpleNamespace(
+        HapBlock=HapBlock, Haplotype=Haplotype, RepeatBlock=RepeatBlock,
+        default_stutter_model=default_stutter_model, Alignment=Alignment,
+        calc_seed_base=calc_seed_base)
+
+
 def homopolymer_hap(copies_list, flank_l="ACGTTGCAGC", flank_r="GTCAGGCTAT",
-                    start=100):
-    """A flank | T-homopolymer (first entry = reference) | flank haplotype."""
-    from longtr_tpu.haplotype.blocks import HapBlock, Haplotype, RepeatBlock
-    from longtr_tpu.models.stutter import default_stutter_model
-    sm = default_stutter_model().with_period(1)
-    blocks = [HapBlock(start - len(flank_l), start, flank_l)]
-    rb = RepeatBlock(start, start + copies_list[0], "T" * copies_list[0], 1, sm)
+                    start=100, cls=None):
+    """A flank | T-homopolymer (first entry = reference) | flank haplotype,
+    of ``cls``'s classes (default :func:`port_classes`)."""
+    cls = cls or port_classes()
+    sm = cls.default_stutter_model().with_period(1)
+    blocks = [cls.HapBlock(start - len(flank_l), start, flank_l)]
+    rb = cls.RepeatBlock(start, start + copies_list[0], "T" * copies_list[0],
+                         1, sm)
     for c in copies_list[1:]:
         rb.add_alternate("T" * c)
     blocks.append(rb)
-    blocks.append(HapBlock(start + copies_list[0],
-                           start + copies_list[0] + len(flank_r), flank_r))
-    return Haplotype(blocks)
+    blocks.append(cls.HapBlock(start + copies_list[0],
+                               start + copies_list[0] + len(flank_r), flank_r))
+    return cls.Haplotype(blocks)
 
 
 def homopolymer_read(copies, flank_l, flank_r, rng, err=0.02, start=100,
-                     ref_copies=12):
+                     ref_copies=12, cls=None):
     """A read of `copies` T's with substitution noise and random qualities;
     its CIGAR is written against `ref_copies` reference T's."""
-    from longtr_tpu.pipeline.alignment import Alignment
+    Alignment = (cls or port_classes()).Alignment
     seq = list(flank_l + "T" * copies + flank_r)
     for i in range(len(seq)):
         if rng.random() < err:
@@ -224,16 +300,17 @@ def homopolymer_read(copies, flank_l, flank_r, rng, err=0.02, start=100,
 
 
 def _mb_fixed(alleles, copies, seed, params=None, err=0.02):
-    def make():
+    def make(cls):
         rng = np.random.default_rng(seed)
         fl, fr = "ACGTTGCAGC", "GTCAGGCTAT"
-        return (homopolymer_hap(alleles, fl, fr),
-                [homopolymer_read(c, fl, fr, rng, err) for c in copies], params)
+        return (homopolymer_hap(alleles, fl, fr, cls=cls),
+                [homopolymer_read(c, fl, fr, rng, err, cls=cls)
+                 for c in copies], params)
     return make
 
 
 def _mb_random(trial):
-    def make():
+    def make(cls):
         rng = np.random.default_rng(1000 + trial)
         fl = "".join(rng.choice(list("ACGT"), 8 + rng.integers(0, 6)))
         fr = "".join(rng.choice(list("ACGT"), 8 + rng.integers(0, 6)))
@@ -241,14 +318,14 @@ def _mb_random(trial):
         alleles = [ref] + sorted({int(a) for a in
                                   rng.integers(4, 22, rng.integers(1, 4))}
                                  - {ref})
-        hap = homopolymer_hap(alleles, fl, fr)
+        hap = homopolymer_hap(alleles, fl, fr, cls=cls)
         alns = [homopolymer_read(int(rng.choice(alleles)), fl, fr, rng,
-                                 err=0.05) for _ in range(5)]
+                                 err=0.05, cls=cls) for _ in range(5)]
         return hap, alns, None
     return make
 
 
-# name -> () -> (haplotype, alignments, alignment params or None)
+# name -> (classes) -> (haplotype, alignments, alignment params or None)
 MODE_B_CASES = {
     "fixed_12_9_15": _mb_fixed([12, 9, 15], (12, 9, 15, 11, 13, 14), 97),
     "fixed_12_9_15_4": _mb_fixed([12, 9, 15, 4], (12, 4, 9, 15, 10), 98),
@@ -258,14 +335,15 @@ MODE_B_CASES = {
 }
 
 
-def mode_b_case(name, aligner_cls):
-    """(aligner, seedable alignments, their seeds) of a mode-B case."""
-    from longtr_tpu_torch.pipeline.mode_b import calc_seed_base
-    hap, alns, params = MODE_B_CASES[name]()
+def mode_b_case(name, aligner_cls, cls=None):
+    """(aligner, seedable alignments, their seeds) of a mode-B case, its
+    objects of ``cls``'s classes (default :func:`port_classes`)."""
+    cls = cls or port_classes()
+    hap, alns, params = MODE_B_CASES[name](cls)
     aligner = aligner_cls(hap, params)
     hs, he = hap.blocks[0].start, hap.blocks[-1].end
-    seeds = [calc_seed_base(a, aligner.repeat_starts, aligner.repeat_ends,
-                            hs, he) for a in alns]
+    seeds = [cls.calc_seed_base(a, aligner.repeat_starts,
+                                aligner.repeat_ends, hs, he) for a in alns]
     keep = [i for i, s in enumerate(seeds) if s >= 0]
     assert keep, f"{name}: no seedable read"
     return aligner, [alns[i] for i in keep], [seeds[i] for i in keep]
@@ -279,7 +357,8 @@ TABLE_KEYS = ("codes", "quals_a", "lw_tab", "lc_tab", "pre_a", "last",
 def synthetic_tables(rng, B, L, R, S, n_d, dtype=np.float32):
     """Random mode-B row tables: every row kind, stutter rows over S
     ordinals, IMPOSSIBLE and -inf artifact entries, `last` anywhere."""
-    from longtr_tpu.utils.base_quality import log_prob_correct, log_prob_error
+    from longtr_tpu_torch.utils.base_quality import (log_prob_correct,
+                                                     log_prob_error)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     lw = np.array([log_prob_error(chr(i)) for i in range(256)], dtype)
     lc = np.array([log_prob_correct(chr(i)) for i in range(256)], dtype)

@@ -19,10 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from longtr_tpu.models.stutter import StutterModel
-from longtr_tpu.ops.pairhmm import encode_seq
 from longtr_tpu.parallel import mesh as jax_mesh
 from longtr_tpu_torch.models.em import EMStutterGenotyper
+from longtr_tpu_torch.models.stutter import StutterModel
 from longtr_tpu_torch.ops import pairhmm as ph
 from longtr_tpu_torch.ops.posterior import batched_posteriors
 from longtr_tpu_torch.parallel import mesh as port_mesh
@@ -43,8 +42,8 @@ def pair_batch():
     haps = ["".join(rng.choice(bases, size=int(rng.integers(40, N))))
             for _ in range(B)]
     reads = ["".join(ch for ch in h if rng.random() > 0.01)[:M] for h in haps]
-    hap_codes = np.stack([encode_seq(h, N) for h in haps])
-    read_codes = np.stack([encode_seq(r, M) for r in reads])
+    hap_codes = np.stack([ph.encode_seq(h, N) for h in haps])
+    read_codes = np.stack([ph.encode_seq(r, M) for r in reads])
     hl = np.array([len(h) for h in haps], np.int32)
     rl = np.array([len(r) for r in reads], np.int32)
     return hap_codes, hl, read_codes, rl, hl + 60

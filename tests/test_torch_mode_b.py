@@ -21,6 +21,7 @@ CUDA kernel to the plain rows bit for bit on a card.
 
 import os
 import sys
+import types
 
 import jax
 import numpy as np
@@ -40,6 +41,19 @@ from test_torch_cuda import (MODE_B_CASES, TABLE_KEYS, homopolymer_hap,  # noqa:
 CASES = sorted(MODE_B_CASES)
 
 
+def jax_classes():
+    """The JAX package's classes: its side of a case builds its own
+    haplotypes and reads from the same seeded draws as the port's."""
+    from longtr_tpu.haplotype.blocks import HapBlock, Haplotype, RepeatBlock
+    from longtr_tpu.models.stutter import default_stutter_model
+    from longtr_tpu.pipeline.alignment import Alignment
+    from longtr_tpu.pipeline.mode_b import calc_seed_base
+    return types.SimpleNamespace(
+        HapBlock=HapBlock, Haplotype=Haplotype, RepeatBlock=RepeatBlock,
+        default_stutter_model=default_stutter_model, Alignment=Alignment,
+        calc_seed_base=calc_seed_base)
+
+
 def _port_cols(prep):
     return mode_b_device.mode_b_cols(
         *[torch.from_numpy(np.ascontiguousarray(prep[k])) for k in TABLE_KEYS],
@@ -57,10 +71,11 @@ def _jax_cols(prep):
 @pytest.mark.parametrize("case", CASES)
 def test_prepare_tables_equal_jax(case):
     port, alns, seeds = mode_b_case(case, ModeBAligner)
-    jaxa, _, _ = mode_b_case(case, JaxAligner)
+    jaxa, jalns, jseeds = mode_b_case(case, JaxAligner, jax_classes())
+    assert jseeds == seeds
     for dtype in (np.float32, np.float64):
         got = port.score_reads_batch_prepare(alns, seeds, dtype)
-        want = jaxa.score_reads_batch_prepare(alns, seeds, dtype)
+        want = jaxa.score_reads_batch_prepare(jalns, jseeds, dtype)
         assert got.keys() == want.keys()
         for k, v in want.items():
             if isinstance(v, np.ndarray):
@@ -98,18 +113,18 @@ def test_mode_b_cols_f64_exact(case):
     np.testing.assert_allclose(cols, _jax_cols(prep), rtol=1e-12, atol=0)
     got = aligner.score_reads_batch(alns, seeds, dtype=np.float64)
     host = np.stack([aligner.score_read(a, s) for a, s in zip(alns, seeds)])
-    jaxa, _, _ = mode_b_case(case, JaxAligner)
+    jaxa, jalns, jseeds = mode_b_case(case, JaxAligner, jax_classes())
     np.testing.assert_array_equal(got, host)
     np.testing.assert_array_equal(
-        got, jaxa.score_reads_batch(alns, seeds, dtype=np.float64))
+        got, jaxa.score_reads_batch(jalns, jseeds, dtype=np.float64))
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_mode_b_f32_close(case):
     aligner, alns, seeds = mode_b_case(case, ModeBAligner)
-    jaxa, _, _ = mode_b_case(case, JaxAligner)
+    jaxa, jalns, jseeds = mode_b_case(case, JaxAligner, jax_classes())
     got = aligner.score_reads_batch(alns, seeds)
-    want = jaxa.score_reads_batch(alns, seeds)
+    want = jaxa.score_reads_batch(jalns, jseeds)
     host = np.stack([aligner.score_read(a, s) for a, s in zip(alns, seeds)])
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, host, rtol=1e-4, atol=1e-4)
@@ -129,8 +144,8 @@ def test_synthetic_tables_vs_jax():
 def test_envelope_empty_allele_returns_none():
     """A config with an empty repeat allele is outside the row tables'
     envelope: the batch declines, and the caller scores on the host."""
-    from longtr_tpu.haplotype.blocks import HapBlock, Haplotype, RepeatBlock
-    from longtr_tpu.models.stutter import default_stutter_model
+    from longtr_tpu_torch.haplotype.blocks import HapBlock, Haplotype, RepeatBlock
+    from longtr_tpu_torch.models.stutter import default_stutter_model
     from longtr_tpu_torch.pipeline.mode_b import calc_seed_base
     sm = default_stutter_model().with_period(1)
     rb = RepeatBlock(100, 106, "TTTTTT", 1, sm)

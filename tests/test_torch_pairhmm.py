@@ -98,17 +98,21 @@ def test_scan_outcomes_cover_the_gates():
 def test_batch_auto_cpu_and_ref_fidelity():
     """pairhmm_batch_auto: the plain scan on the CPU, the native f64 DP
     under --ref-fidelity (bit-identical to the f64 oracle)."""
-    from longtr_tpu.utils import mathops
+    from longtr_tpu.utils import mathops as jax_mathops
+    from longtr_tpu_torch.utils import mathops
     batch, jp, tp, got = _case("default")
     out = port.pairhmm_batch_auto(*batch, tp, device=torch.device("cpu"))
     assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
     assert np.array_equal(out.numpy(), got)
+    # each package keeps its own flag: set both, reset both
     mathops.set_ref_fidelity(True)
+    jax_mathops.set_ref_fidelity(True)
     try:
         f64 = port.pairhmm_batch_auto(*batch, tp, device=torch.device("cpu"))
         jax_f64 = np.asarray(jax_pairhmm.pairhmm_batch_auto(*batch, jp))
     finally:
         mathops.set_ref_fidelity(False)
+        jax_mathops.set_ref_fidelity(False)
     assert f64.dtype == np.float64
     assert np.array_equal(f64, jax_f64)
 
@@ -147,11 +151,16 @@ def test_wrappers_take_plain_version_on_cpu():
     t = [torch.from_numpy(a) for a in batch]
     trans = torch.from_numpy(tp.as_array())
     pairhmm_cuda.reset_launches()
-    for fn in (pairhmm_cuda.pairhmm_resident, pairhmm_cuda.pairhmm_streamed,
-               pairhmm_cuda.pairhmm_batch):
+    for fn in (pairhmm_cuda.pairhmm_resident,
+               pairhmm_cuda.pairhmm_resident_warp,
+               pairhmm_cuda.pairhmm_resident_block,
+               pairhmm_cuda.pairhmm_resident_smem,
+               pairhmm_cuda.pairhmm_streamed, pairhmm_cuda.pairhmm_batch):
         assert np.array_equal(fn(*t, trans).numpy(), got)
     assert np.array_equal(port.PairHMM(tp)(*t).numpy(), got)
-    assert pairhmm_cuda.launches == {"pairhmm_resident": 0,
+    assert pairhmm_cuda.launches == {"pairhmm_resident_warp": 0,
+                                     "pairhmm_resident_block": 0,
+                                     "pairhmm_resident_smem": 0,
                                      "pairhmm_streamed": 0}
 
 
@@ -184,7 +193,16 @@ def test_wrapper_checks_refuse_bad_tensors():
         a.update(over)
         return a
 
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        pairhmm_cuda.pairhmm_resident(**args())
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        pairhmm_cuda.pairhmm_streamed(**args())
+    for fn in (pairhmm_cuda.pairhmm_resident,
+               pairhmm_cuda.pairhmm_resident_warp,
+               pairhmm_cuda.pairhmm_resident_block,
+               pairhmm_cuda.pairhmm_resident_smem,
+               pairhmm_cuda.pairhmm_streamed):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(**args())
+    wide = torch.empty((B, pairhmm_cuda.BLOCK_MAX_WIDTH + 1),
+                       dtype=torch.uint8, device=meta)
+    with pytest.raises(ValueError, match="exceeds the warp variant"):
+        pairhmm_cuda.pairhmm_resident_warp(**args(read=wide))
+    with pytest.raises(ValueError, match="exceeds the block variant"):
+        pairhmm_cuda.pairhmm_resident_block(**args(read=wide))

@@ -78,6 +78,15 @@ def _argv(fx, out, extra=()):
             "--quiet", *extra]
 
 
+def _reset_ref_fidelity():
+    """Each package keeps its own --ref-fidelity flag, and each CLI sets
+    its own: reset both."""
+    from longtr_tpu.utils import mathops as jax_mathops
+    from longtr_tpu_torch.utils import mathops
+    jax_mathops.set_ref_fidelity(False)
+    mathops.set_ref_fidelity(False)
+
+
 def _moved(counts, before):
     return {k: counts[k] - before[k] for k in counts}
 
@@ -112,11 +121,10 @@ def _both(fx, tmp_path, extra, route, mode_b_route=None):
                                          (["--phased-bam"], "cpu")],
                          ids=["default", "ref_fidelity", "phased_bam"])
 def test_synth_fixture_vcf_identical(synth, tmp_path, extra, route):
-    from longtr_tpu.utils import mathops
     try:
         want, got = _both(synth, tmp_path, extra, route)
     finally:
-        mathops.set_ref_fidelity(False)
+        _reset_ref_fidelity()
     assert sum(1 for ln in want if not ln.startswith("#")) == len(synth["loci"])
     assert got == want
 
@@ -167,13 +175,12 @@ def test_mode_b_homopolymers_vcf_identical(homopolymers, tmp_path,
 
 def test_mode_b_ref_fidelity_vcf_identical(homopolymers, tmp_path):
     """--ref-fidelity scores every mode-B element on the host in f64."""
-    from longtr_tpu.utils import mathops
     try:
         want, got = _both(homopolymers, tmp_path,
                           ["--stutter-align-len", "25", "--ref-fidelity"],
                           None, "host_f64")
     finally:
-        mathops.set_ref_fidelity(False)
+        _reset_ref_fidelity()
     assert sum(1 for ln in want if not ln.startswith("#")) == 8
     assert got == want
 
