@@ -13,7 +13,9 @@ Phases, one line or more each:
    warps a pair; smem: the rows in shared memory), both kernels of K2
    (cluster: one thread-block cluster a pair, up to 65536 columns;
    workspace: the rows in device memory, any width), the plain torch scan
-   on the card and the native host scorer; every pair of them must agree
+   on the card and the native host scorer (but for the three largest
+   cases, B=128 x 8 kb, B=8 x 24 kb and B=4 x 40 kb, which are held to the
+   plain scan alone); every pair of them must agree
    bit for bit (tolerance 0), at 192 bp, 8 kb, length skew, custom
    parameters, gates and band fails, B=8 x 24 kb, B=4 x 40 kb, and at each
    kernel's width edges (the cluster kernel's at every C step, C full
@@ -25,16 +27,22 @@ Phases, one line or more each:
    at C = 1 beside
    the block variant (its barrier's cost), and at B = 8 and 128 x 12, 24
    and 40 kb at cluster_shape's C beside the fastest other C of the full
-   sweep recorded in PERF.md (the guard of cluster_shape's choice).  The
-   mode-B kernel at bench.py's shape (512 pooled reads of a
-   35 bp | A x 18 | 35 bp locus with -2/-1/+1 alternates) and on rows
-   too wide for its shared memory must equal the plain torch rows on the
-   card (tolerance 0), and its marginalized LLs the host f64 path within
-   1e-4.  Times each kernel and its plain version at the main path's
-   shapes.
+   sweep recorded in PERF.md (the guard of cluster_shape's choice).  Mode
+   B at bench.py's shape (512 pooled reads of a 35 bp | A x 18 | 35 bp
+   locus with -2/-1/+1 alternates): the artifact kernel's float32 tables
+   must equal the host's numpy tables (tolerance 0; the float64 entries
+   that differ before the cast are counted), there and on 12 random
+   repeat blocks; both row kernels (warp and block), reading those tables
+   in place, must equal the plain torch rows on the card (tolerance 0),
+   there, at the warp kernel's widest rows and one column more (1024,
+   1025) and on rows too wide for the block kernel's shared memory; the
+   marginalized LLs the host f64 path within 1e-4.  Times each kernel and
+   its plain version at the main path's shapes, and mode-B pairs/s split
+   into prepare, dispatch and marginalize.
 3. e2e     — the `longtr` CLI of the port, each run twice: on the card, and
-   with pair scoring given to the native host scorer and mode B to the
-   plain rows on the card.  Catalogs: 512 short STRs, with and without
+   as the reference, with pair scoring given to the native host scorer and
+   mode B to its reference path (the host's numpy artifact tables and the
+   plain rows on the card).  Catalogs: 512 short STRs, with and without
    --stutter-align-len 25 (one locus in six is an A homopolymer, so mode B
    and the pair-HMM both run); 24 VNTRs of 500-3000 bp; and the dryrun
    catalog's --snp-vcf, --ref-vcf and mode-B + --haploid-chrs surfaces and
@@ -46,7 +54,10 @@ Phases, one line or more each:
    take K1's warp variant and the VNTR run its block variant; a second
    VNTR run lowers the width thresholds so that the smem variant and K2's
    workspace kernel take its batches, a third so that K2's cluster kernel
-   takes them.
+   takes them.  The mode-B runs take the artifact kernel and the warp row
+   kernel; a second mode-B dryrun sends its rows to the block kernel.  The
+   mode-B runs print the Haplotype build (where the reference builds its
+   tables) and Mode B dispatch seconds of both runs.
 4. mesh    — a mesh of four shards on the one card (4 x cuda:0): the
    sharded pair-HMM at phase 2's 192 bp and 8 kb batches, through K1's
    variant for the width and through each of K2's two kernels, equals the
@@ -79,7 +90,9 @@ bytes over 3.35 TB/s (each input read once, each output written once), the
 H100 SXM's published peaks at 700 W.  A pair-HMM cell is 21 float
 operations (the plain scan's adds, products and maxes), counted over the
 pairs that are neither gated nor band-failed at the start; a mode-B column
-of a row by its kind (expf and logf one operation each).
+of a row by its kind (expf and logf one operation each).  The artifact
+tables are float64 work, over 34 TFLOP/s (float64 outside the tensor
+cores, the same data sheet), counted on the run's data by artifact_ops.
 """
 
 import gzip
@@ -92,7 +105,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_OPS = 67e12     # float32 operations/s outside the tensor cores
+PEAK_F64_OPS = 34e12     # float64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12     # HBM3 bytes/s
+NATIVE_MAX_CELLS = 2e9   # phase 2 cases the native host scorer also checks
 
 
 def fail(msg):
@@ -151,6 +166,75 @@ def mode_b_bound(g, n_d):
     return bound(float(ops), nbytes)
 
 
+def artifact_ops(inp):
+    """float64 operations the artifact tables of `inp` (a prepared batch's
+    ARTIFACT_KEYS arrays) need, counted on this data: per offset of a
+    segment the block's and the insertions' prefix adds; per valid column
+    and artifact size the initial lp (2, or one add a base where a
+    deletion runs past the segment's start), the descent's lp updates (2
+    each) and int_log adds (1 each) up to the column's exit, the tail (1),
+    the LSE (a max, a subtract, a compare, an exp and an add an entry; a log
+    and an add) and the prior (1).  The descent is the same for every
+    column of a (table, D), so it is walked once and cut at each exit."""
+    import numpy as np
+    total = 0.0
+    for row in inp["tdesc"].tolist():
+        side, bl, per, d_first, n_dl, n_del, n_ins, _bo, uo = row
+        Ls = inp["seg_len"][side].astype(np.int64)
+        total += float(Ls.sum()) * (bl + per * n_ins)
+        if not Ls.max():
+            continue
+        j = np.arange(int(Ls.max()))
+        valid = j[None, :] < Ls[:, None]
+        ups = inp["upstream"][uo:uo + max(n_del, 1) * bl]
+        for di in range(n_dl):
+            D = d_first + di * per
+            if bl + D < 0:
+                continue
+            if D == 0:
+                total += float(Ls.sum())
+                continue
+            up = ups[:bl] if D > 0 else ups[(-D // per - 1) * bl:
+                                            (-D // per) * bl]
+            # the shared descent: (i at the step, ops, i after)
+            steps, i = [], 0
+            while i > -bl:
+                if D > 0 and not (-i + per < bl):
+                    steps.append((i, 0, i - 1))
+                    i -= 1
+                    continue
+                um = int(up[bl - 1 + i])
+                if um == 0:
+                    u = 2 * len(range(i - per, i - D - 1, -per)) if D > 0 \
+                        else 2
+                    steps.append((i, u, i - 1))
+                    i -= 1
+                else:
+                    steps.append((i, 1, i - um))
+                    i -= um
+            t_base = bl if D > 0 else bl + D
+            # by exit -lim = 0 .. bl: steps taken, their ops, the tail
+            n_st = np.zeros(bl + 1)
+            ops_st = np.zeros(bl + 1)
+            for k in range(bl + 1):
+                taken = [st for st in steps if st[0] > -k]
+                i_exit = taken[-1][2] if taken else 0
+                n_st[k] = len(taken) + (i_exit > -t_base)
+                ops_st[k] = sum(st[1] for st in taken) + (i_exit > -t_base)
+            base_len = np.minimum(bl + D, j + 1)
+            neg = (Ls[:, None] - 1 - j[None, :] + D) < 0
+            if D > 0:
+                k = np.minimum(np.maximum(0, base_len - D), bl)
+                init = np.full(neg.shape, 2.0)
+            else:
+                k = base_len
+                init = np.where(neg, base_len[None, :], 2.0)
+            n_e = 1 + n_st[k]
+            per_col = init + ops_st[k][None, :] + 5 * n_e + 3
+            total += float((per_col * valid).sum())
+    return total
+
+
 def kernel_lines():
     """`file:line` of the two Pallas kernel bodies the CUDA kernels replace."""
     rel = "longtr_tpu/ops/pairhmm_pallas.py"
@@ -166,14 +250,13 @@ def kernel_lines():
     return found
 
 
-def mode_b_line():
-    """`file:line` of the jnp mode-B row scan the CUDA kernel replaces."""
-    rel = "longtr_tpu/ops/mode_b_device.py"
+def def_line(rel, name):
+    """`file:line` of `def name(` in the JAX package's file `rel`."""
     with open(os.path.join(ROOT, rel)) as fh:
         for i, ln in enumerate(fh, 1):
-            if ln.startswith("def mode_b_cols("):
+            if ln.lstrip().startswith(f"def {name}("):
                 return f"{rel}:{i}"
-    fail(f"mode_b_cols not found in {rel}")
+    fail(f"{name} not found in {rel}")
 
 
 def bench_mode_b_locus(device):
@@ -214,33 +297,123 @@ def bench_mode_b_locus(device):
     return aligner, [pools[i] for i in keep], [int(seeds[i]) for i in keep]
 
 
-def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
-    """Phase 2 for mode B: the kernel against the plain rows on the card at
-    bench.py's shape and above the shared-memory width; the LLs against
-    the host f64 path; times and pairs/s."""
+def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label):
+    """The artifact kernel's float32 tables against the host numpy
+    code's at tolerance 0; returns (the kernel's float32 tables on the
+    card, float64 entries that differ before the cast, entries,
+    max |float64 difference|, the host's tables' seconds, max |float32
+    difference|)."""
     import numpy as np
     import torch
-    from test_torch_cuda import TABLE_KEYS, synthetic_tables
+    from test_torch_cuda import ARTIFACT_KEYS
+    g = [torch.from_numpy(np.ascontiguousarray(inp[k])).to(dev)
+         for k in ARTIFACT_KEYS]
+    t = time.perf_counter()
+    host = aligner.host_artifact_tables(dict(inp, P=P, n_d=n_d,
+                                             dtype=np.float64))
+    host_s = time.perf_counter() - t
+    got32 = mbc.mode_b_artifacts(*g, n_d=n_d)
+    got64 = mbc.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64)
+    torch.cuda.synchronize()
+    c32, c64 = got32.cpu().numpy(), got64.cpu().numpy()
+    if c32.shape != host.shape or not np.array_equal(c32,
+                                                     host.astype(np.float32)):
+        bad = np.argwhere(c32 != host.astype(np.float32))[:4].tolist()
+        fail(f"mode_b_artifacts disagrees with the host tables on {label}: "
+             f"{int((c32 != host.astype(np.float32)).sum())} entries, first "
+             f"{bad}")
+    fin = np.isfinite(host)
+    if not np.array_equal(fin, np.isfinite(c64)) \
+            or not np.array_equal(c64[~fin], host[~fin]):
+        fail(f"mode_b_artifacts: non-finite entries differ on {label}")
+    err = float(np.abs(c64[fin] - host[fin]).max()) if fin.any() else 0.0
+    err32 = float(np.abs(c32[fin].astype(np.float64)
+                         - host[fin].astype(np.float32)).max()) \
+        if fin.any() else 0.0
+    return got32, int((c64 != host).sum()), host.size, err, host_s, err32
+
+
+def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
+    """Phase 2 for mode B: the artifact kernel against the host numpy
+    tables at bench.py's shape and on random blocks (tolerance 0 in
+    float32, float64 differences counted); both row kernels against the
+    plain rows on the card at that shape, at the warp kernel's edge and
+    above the shared-memory width; the LLs against the host f64 path;
+    times, bounds and pairs/s."""
+    import numpy as np
+    import torch
+    from longtr_tpu_torch.ops.mode_b_artifacts import mode_b_artifacts_plain
+    from longtr_tpu_torch.pipeline.mode_b import ModeBAligner
+    from test_torch_cuda import (ARTIFACT_KEYS, TABLE_KEYS, artifact_case,
+                                 synthetic_tables)
 
     aligner, alns, seeds = bench_mode_b_locus(dev)
     t = time.perf_counter()
     prep = aligner.score_reads_batch_prepare(alns, seeds)
     prep_s = time.perf_counter() - t
-    g = [torch.from_numpy(prep[k]).to(dev) for k in TABLE_KEYS]
-    n_d = prep["n_d"]
+    n_d, P = prep["n_d"], prep["P"]
+    # (a) the artifact tables: bench.py's shape, then the edges
+    A, n64, n_all, err64, host_s, art_err = artifacts_vs_host(
+        aligner, prep, P, n_d, dev, mbc, "bench.py's shape")
+    art_shape = (f"T={prep['tdesc'].shape[0]} P={P} n_d={n_d} "
+                 f"L={prep['seg_codes'].shape[2]}")
+    e64 = e_all = 0
+    e_err = 0.0
+    for trial in range(12):
+        al, tables, ss, L_max, nd = artifact_case(
+            trial, lambda hap, params=None: ModeBAligner(hap, params,
+                                                         device=dev))
+        inp = al.artifact_inputs(tables, ss, L_max, nd)
+        _g, d64, d_all, d_err, _s, d_err32 = artifacts_vs_host(
+            al, inp, len(ss[0]), nd, dev, mbc, f"random block {trial}")
+        e64, e_all, e_err = e64 + d64, e_all + d_all, max(e_err, d_err)
+        art_err = max(art_err, d_err32)
+    say("kernels", f"mode_b_artifacts at bench.py's shape ({art_shape}) and "
+        "on 12 random blocks (homopolymers and not, deletions past the "
+        "block, empty and one-base segments, padding): float32 tables == "
+        "the host numpy tables (tolerance 0); float64 entries that differ "
+        f"before the cast: {n64} of {n_all} at bench.py's shape (max "
+        f"{err64:.3g}), {e64} of {e_all} on the random blocks (max "
+        f"{e_err:.3g})")
+    # (b) the row DP on the kernel's tables, read in place
+    g = [A if k == "A_tab" else torch.from_numpy(prep[k]).to(dev)
+         for k in TABLE_KEYS]
     shape = (f"B={g[0].shape[0]} R={g[6].shape[1]} L={g[0].shape[1]} "
-             f"S={g[9].shape[1]} n_d={n_d}")
-    if not mbc.fits_on_chip(g[0].shape[1], dev):
-        fail(f"mode_b_cols: bench.py's shape {shape} does not fit on chip")
+             f"S={g[10].shape[1]} NT={g[9].shape[0]} n_d={n_d}")
+    if not mbc.takes_warp(g[0].shape[1], n_d):
+        fail(f"mode_b_cols: bench.py's shape {shape} does not take the warp "
+             "kernel")
+    before = dict(mbc.launches)
     got = mbc.mode_b_cols(*g, n_d=n_d)
+    if mbc.launches["mode_b_cols"] != before["mode_b_cols"] + 1:
+        fail("mode_b_cols: bench.py's shape did not launch the warp kernel")
+    got_block = mbc.mode_b_cols(*g, n_d=n_d, variant="block")
     plain = mbd.mode_b_cols_plain(*g, n_d=n_d)
     torch.cuda.synchronize()
-    max_err = float((got.double() - plain.double()).abs().nan_to_num().max())
-    if not torch.equal(got, plain):
-        bad = torch.nonzero(got != plain)[:4].tolist()
-        fail(f"mode_b_cols disagrees with the plain rows at {shape}: "
-             f"first {bad}")
-    # rows too wide for the block's shared memory: the workspace
+    max_err = {"mode_b_cols": float((got.double() - plain.double()).abs()
+                                    .nan_to_num().max()),
+               "mode_b_cols_block": float((got_block.double()
+                                           - plain.double()).abs()
+                                          .nan_to_num().max())}
+    for name, out in (("warp", got), ("block", got_block)):
+        if not torch.equal(out, plain):
+            bad = torch.nonzero(out != plain)[:4].tolist()
+            fail(f"mode_b_cols ({name}) disagrees with the plain rows at "
+                 f"{shape}: first {bad}")
+    # the warp kernel's widest rows and one column more, then rows too
+    # wide for the block kernel's shared memory (the workspace)
+    for L, want_route in ((1024, "mode_b_cols"), (1025, "mode_b_cols_block")):
+        ge = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+            synthetic_tables(np.random.default_rng(L), 8, L, 32, 2, 13)[k]
+            for k in TABLE_KEYS)]
+        want = mbd.mode_b_cols_plain(*ge, n_d=13)
+        before = dict(mbc.launches)
+        outs = [mbc.mode_b_cols(*ge, n_d=13),
+                mbc.mode_b_cols(*ge, n_d=13, variant="block")]
+        if mbc.launches[want_route] == before[want_route]:
+            fail(f"mode_b_cols: width {L} did not take {want_route}")
+        if not all(torch.equal(o, want) for o in outs):
+            fail(f"mode_b_cols disagrees with the plain rows at width {L}")
     wide = synthetic_tables(np.random.default_rng(9), 4, 20000, 32, 2, 13)
     gw = [torch.from_numpy(np.ascontiguousarray(wide[k])).to(dev)
           for k in TABLE_KEYS]
@@ -251,19 +424,30 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
                        mbd.mode_b_cols_plain(*gw, n_d=13)):
         fail(f"mode_b_cols disagrees with the plain rows at {wide_shape} "
              "(workspace)")
-    # marginalized LLs: the card's f32 rows against the host f64 path on
-    # the first 64 reads (the host path takes ~100 ms a read)
+    # (c) marginalized LLs: the card's f32 rows against the host f64 path
+    # on the first 64 reads (the host path takes ~100 ms a read)
     timings = {}
     lls = aligner.score_reads_batch_finish(prep, timings)
     t = time.perf_counter()
     host = np.stack([aligner.score_read(a, s)
                      for a, s in zip(alns[:64], seeds[:64])])
-    host_s = (time.perf_counter() - t) / 64 * len(alns)
+    host_ll_s = (time.perf_counter() - t) / 64 * len(alns)
     ll_err = float(np.abs(lls[:64] - host).max())
     if not np.allclose(lls[:64], host, rtol=1e-4, atol=1e-4):
         fail(f"mode-B LLs on the card differ from the host f64 path by "
              f"{ll_err}")
-    ms = dev_ms(lambda: mbc.mode_b_cols(*g, n_d=n_d), 20)
+    # (d) times and bounds
+    ga = [torch.from_numpy(prep[k]).to(dev) for k in ARTIFACT_KEYS]
+    art_ms = dev_ms(lambda: mbc.mode_b_artifacts(*ga, n_d=n_d), 20)
+    art_plain_ms = dev_ms(lambda: mode_b_artifacts_plain(*ga, n_d=n_d), 2)
+    art_bytes = (sum(x.numel() * x.element_size() for x in ga)
+                 + A.numel() * A.element_size())
+    art_ops = artifact_ops(prep)
+    art_bound = max((art_ops / PEAK_F64_OPS * 1e3, "operations"),
+                    (art_bytes / PEAK_BYTES * 1e3, "bytes"))
+    ms = {"mode_b_cols": dev_ms(lambda: mbc.mode_b_cols(*g, n_d=n_d), 20),
+          "mode_b_cols_block": dev_ms(lambda: mbc.mode_b_cols(
+              *g, n_d=n_d, variant="block"), 20)}
     plain_ms = dev_ms(lambda: mbd.mode_b_cols_plain(*g, n_d=n_d), 3)
     bound_ms, bound_by = mode_b_bound(g, n_d)
     # pairs/s as bench.py:234 defines it: (prepare + finish) per rep
@@ -276,22 +460,45 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
         aligner.score_reads_batch_finish(p, phase)
     rep_s = (time.perf_counter() - t) / reps
     pairs = len(alns) * aligner.hap.num_combs()
-    say("kernels", f"mode_b_cols at bench.py's shape ({shape}): == plain "
-        f"rows on the card (bit-identical); LLs within {ll_err:.3g} of the "
-        "host f64 path on 64 reads; rows of width 20000 (workspace) == "
-        "plain")
-    say("kernels", f"mode_b_cols on {smi}: kernel {ms:.4f} ms, plain rows "
-        f"{plain_ms:.3f} ms (CUDA events), bound {bound_ms:.5f} ms "
-        f"({bound_by}; {bound_ms / ms:.3%} of it); host f64 score_read "
-        f"{host_s:.3f} s for all {len(alns)} reads (wall, timed on 64); "
-        f"first prepare {prep_s:.3f} s")
+    copied = sum(prep[k].nbytes for k in TABLE_KEYS if k != "A_tab") \
+        + sum(prep[k].nbytes for k in ARTIFACT_KEYS)
+    say("kernels", f"mode_b_cols at bench.py's shape ({shape}), on the "
+        "artifact kernel's tables in place: warp and block kernels == plain "
+        f"rows on the card (bit-identical); widths 1024 (warp) and 1025 "
+        "(block) == plain; rows of width 20000 (workspace) == plain; LLs "
+        f"within {ll_err:.3g} of the host f64 path on 64 reads")
+    say("kernels", f"mode_b_artifacts on {smi} ({art_shape}): kernel "
+        f"{art_ms:.4f} ms, plain version on the card {art_plain_ms:.3f} ms "
+        f"(CUDA events), bound {art_bound[0]:.5f} ms ({art_bound[1]}; "
+        f"{art_bytes} bytes, {art_ops:.4g} float64 operations at "
+        f"{PEAK_F64_OPS / 1e12:g} TFLOP/s; {art_bound[0] / art_ms:.3%} of "
+        f"it); the host numpy tables {host_s:.3f} s (wall)")
+    say("kernels", f"mode_b_cols on {smi}: warp kernel "
+        f"{ms['mode_b_cols']:.4f} ms, block kernel "
+        f"{ms['mode_b_cols_block']:.4f} ms, plain rows {plain_ms:.3f} ms "
+        f"(CUDA events), bound {bound_ms:.5f} ms ({bound_by}; warp "
+        f"{bound_ms / ms['mode_b_cols']:.3%}, block "
+        f"{bound_ms / ms['mode_b_cols_block']:.3%} of it); host f64 "
+        f"score_read {host_ll_s:.3f} s for all {len(alns)} reads (wall, "
+        f"timed on 64); first prepare {prep_s:.3f} s")
     say("kernels", f"mode-B pairs/s (bench.py's definition): "
         f"{pairs / rep_s:.5g} ({rep_s:.4f} s a rep: prepare "
-        f"{phase['prepare_s'] / reps:.4f}, dispatch "
-        f"{phase['dispatch_s'] / reps:.4f}, marginalize "
-        f"{phase['marginalize_s'] / reps:.4f})")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
+        f"{phase['prepare_s'] / reps:.4f}, dispatch (copy, both kernels, "
+        f"copy back) {phase['dispatch_s'] / reps:.4f}, marginalize "
+        f"{phase['marginalize_s'] / reps:.4f}); {copied} bytes copied to "
+        f"the card a dispatch, {A.numel() * A.element_size()} bytes of "
+        "tables built there")
+    entry = {"plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "shape": shape}
+    return {"mode_b_cols": dict(entry, ms=ms["mode_b_cols"],
+                                max_abs_err=max_err["mode_b_cols"]),
+            "mode_b_cols_block": dict(entry, ms=ms["mode_b_cols_block"],
+                                      max_abs_err=max_err[
+                                          "mode_b_cols_block"]),
+            "mode_b_artifacts": {"ms": art_ms, "plain_ms": art_plain_ms,
+                                 "bound_ms": art_bound[0],
+                                 "bound_by": art_bound[1],
+                                 "max_abs_err": art_err, "shape": art_shape},
             "wide_shape": wide_shape}
 
 
@@ -544,6 +751,7 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
         if scored["cpu"] or scored["host_f64"] or not scored["cuda"]:
             fail(f"dryrun {name} mesh: pairs scored off the card: {scored}")
         if name == "mode-b+haploid" and (not launches["mode_b_cols"]
+                                         or not launches["mode_b_artifacts"]
                                          or mode_b_scored["cpu"]):
             fail(f"dryrun {name} mesh: mode B off the card: {launches} "
                  f"{mode_b_scored}")
@@ -822,11 +1030,20 @@ def smoke(tmp, dev, smi):
     outcomes = set()
     pc.reset_launches()
     # the native scorer's host threads (ctypes releases the GIL) work
-    # through the cases in order while the card checks them
+    # through the cases in order while the card checks them.  The three
+    # largest (B=128 x 8 kb, B=8 x 24 kb, B=4 x 40 kb: ~2e10 cells, minutes
+    # of the host) are held to the plain scan on the card alone, which the
+    # native scorer holds on every other case.
     from concurrent.futures import ThreadPoolExecutor
     host = ThreadPoolExecutor(1)
+
+    def native_cells(arrs):
+        return float((arrs[1].astype(np.int64) * arrs[3]).sum())
+
     natives = [host.submit(native.pairhmm_batch_native, *arrs,
-                           params.as_array()) for _l, arrs, params in cases]
+                           params.as_array())
+               if native_cells(arrs) <= NATIVE_MAX_CELLS else None
+               for _l, arrs, params in cases]
     try:
         for (label, arrs, params), fut in zip(cases, natives):
             tr = params.as_array()
@@ -856,7 +1073,7 @@ def smoke(tmp, dev, smi):
                 fail(f"pairhmm_batch sent {label} (width {M}) to {moved}, "
                      f"expected {routed(M)}")
             torch.cuda.synchronize()
-            nat = fut.result()
+            nat = plain if fut is None else fut.result()
             if nat is None:
                 fail("native scorer unavailable")
             for kname, out in outs.items():
@@ -882,8 +1099,10 @@ def smoke(tmp, dev, smi):
                 "streamed (through the router)"
             dims = (" (cluster C, K, W = %d, %d, %d)" % cluster_dims(M, B)
                     if takes("pairhmm_streamed_cluster", M) else "")
+            held = "native" if fut is not None else "(not native: held " \
+                "to the plain scan)"
             say("kernels", f"{label}: B={B} N={arrs[0].shape[1]} M={M} "
-                f"{ran} == plain == native (bit-identical; pairhmm_batch took "
+                f"{ran} == plain == {held} (bit-identical; pairhmm_batch took "
                 f"{routed(M).replace('pairhmm_', '')}; "
                 f"{int((nat == ph.BAND_FAIL_SCORE).sum())} band fails, "
                 f"{int((nat == ph.IMPOSSIBLE).sum())} gated){dims}")
@@ -1022,7 +1241,8 @@ def smoke(tmp, dev, smi):
             return [ln for ln in fh.read().splitlines()
                     if not ln.startswith("##command")]
 
-    def run(tag, fx, extra, scorer, out_dir, mode_b_scorer=None, mesh=None):
+    def run(tag, fx, extra, scorer, out_dir, mode_b_reference=False,
+            mesh=None):
         name = tag.replace(" ", "_").replace("+", "_")
         out = os.path.join(out_dir, f"{name}.vcf.gz")
         metrics = os.path.join(out_dir, f"{name}.json")
@@ -1033,7 +1253,7 @@ def smoke(tmp, dev, smi):
         torch.cuda.synchronize()
         t = time.perf_counter()
         rc = cli.main(argv, device=dev, pair_scorer=scorer,
-                      mode_b_scorer=mode_b_scorer, mesh=mesh)
+                      mode_b_reference=mode_b_reference, mesh=mesh)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         if rc != 0:
@@ -1055,28 +1275,34 @@ def smoke(tmp, dev, smi):
     str_fx = catalog("str_in", 512)
     vntr_fx = catalog("vntr_in", 24, vntr=True)
     # (tag, catalog, options, environment, routing): the card's runs of
-    # each are compared with a native-scored reference run of the same
-    # options.  The device-posterior run's reference is the default
-    # host-f64 posterior.  The VNTR catalog's batches are 1-2 kb and 2-4 kb
-    # wide, both K1's block variant; its second run lowers the thresholds
-    # (`routing`: pairhmm_cuda attributes) so that the 1-2 kb batch takes
-    # the smem variant and the 2-4 kb batch the workspace kernel, its third
-    # so that both take K2's cluster kernel.
-    catalogs = [("STR", str_fx, [], {}, {}),
-                ("VNTR", vntr_fx, ["--max-tr-len", "10000"], {}, {}),
+    # each are compared with a reference run of the same options, its pairs
+    # scored by the native host scorer and its mode B on the reference path
+    # (the host's numpy artifact tables, the plain rows on the card).  The
+    # device-posterior run's reference is the default host-f64 posterior.
+    # The VNTR catalog's batches are 1-2 kb and 2-4 kb wide, both K1's
+    # block variant; its second run lowers the thresholds (`routing`:
+    # (module, attribute, value)) so that the 1-2 kb batch takes the smem
+    # variant and the 2-4 kb batch the workspace kernel, its third so that
+    # both take K2's cluster kernel.  The second mode-B dryrun sends its
+    # rows to the block kernel.
+    catalogs = [("STR", str_fx, [], {}, []),
+                ("VNTR", vntr_fx, ["--max-tr-len", "10000"], {}, []),
                 ("VNTR smem+streamed", vntr_fx, ["--max-tr-len", "10000"], {},
-                 {"BLOCK_MAX_WIDTH": 1024, "SMEM_MAX_WIDTH": 2048,
-                  "CLUSTER_MAX_WIDTH": 2048}),
+                 [(pc, "BLOCK_MAX_WIDTH", 1024), (pc, "SMEM_MAX_WIDTH", 2048),
+                  (pc, "CLUSTER_MAX_WIDTH", 2048)]),
                 ("VNTR cluster", vntr_fx, ["--max-tr-len", "10000"], {},
-                 {"BLOCK_MAX_WIDTH": 1024, "SMEM_MAX_WIDTH": 0}),
-                ("STR mode B", str_fx, ["--stutter-align-len", "25"], {}, {}),
-                ("dryrun snp-vcf", dry, ["--snp-vcf", dr["snp_vcf"]], {}, {}),
-                ("dryrun ref-vcf", dry, ["--ref-vcf", dr["panel"]], {}, {}),
+                 [(pc, "BLOCK_MAX_WIDTH", 1024), (pc, "SMEM_MAX_WIDTH", 0)]),
+                ("STR mode B", str_fx, ["--stutter-align-len", "25"], {}, []),
+                ("dryrun snp-vcf", dry, ["--snp-vcf", dr["snp_vcf"]], {}, []),
+                ("dryrun ref-vcf", dry, ["--ref-vcf", dr["panel"]], {}, []),
                 ("dryrun mode-b+haploid", dry, ["--stutter-align-len", "25",
                                                 "--haploid-chrs", "chrH"], {},
-                 {}),
+                 []),
+                ("dryrun mode-b+haploid block", dry,
+                 ["--stutter-align-len", "25", "--haploid-chrs", "chrH"], {},
+                 [(mbc, "WARP_MAX_WIDTH", 0)]),
                 ("dryrun core device-posterior", dry, [],
-                 {"LONGTR_DEVICE_POSTERIOR": "1"}, {})]
+                 {"LONGTR_DEVICE_POSTERIOR": "1"}, [])]
     say("e2e", f"catalogs built in {time.perf_counter() - t:.1f} s "
         "(512 short-STR loci, one in six an A homopolymer of 10-25 copies; "
         "24 VNTR loci, 500-3000 bp repeats; 3 samples at 20x; the "
@@ -1086,23 +1312,23 @@ def smoke(tmp, dev, smi):
         if routing:     # the same run as the one before it, rerouted
             refs[tag] = refs[prev]
             continue
-        refs[tag] = run(tag + " native", fx, extra, native_scorer, tmp,
-                        mode_b_scorer=mbd.mode_b_cols_plain)
+        refs[tag] = run(tag + " reference", fx, extra, native_scorer, tmp,
+                        mode_b_reference=True)
         prev = tag
     shapes = []
     real_mode_b = mbc.mode_b_cols
 
     def recording(*args, n_d, **kw):
         shapes.append((args[0].shape[0], args[6].shape[1], args[0].shape[1],
-                       args[9].shape[1], n_d))
+                       args[10].shape[1], n_d))
         return real_mode_b(*args, n_d=n_d, **kw)
 
     mbc.mode_b_cols = recording      # records shapes; counts stay the wrapper's
     results, counts = {}, {}
     for tag, fx, extra, env, routing in catalogs:
-        saved = {k: getattr(pc, k) for k in routing}
-        for k, v in routing.items():
-            setattr(pc, k, v)
+        saved = [(mod, k, getattr(mod, k)) for mod, k, _v in routing]
+        for mod, k, v in routing:
+            setattr(mod, k, v)
         os.environ.update(env)
         # every count to 0 just before the path, read just after
         pc.reset_launches()
@@ -1113,8 +1339,8 @@ def smoke(tmp, dev, smi):
         try:
             results[tag] = run(tag + " cuda", fx, extra, None, tmp)
         finally:
-            for k, v in saved.items():
-                setattr(pc, k, v)
+            for mod, k, v in saved:
+                setattr(mod, k, v)
             for k in env:
                 del os.environ[k]
         counts[tag] = ({**pc.launches, **mbc.launches}, dict(ph.pairs_scored),
@@ -1128,7 +1354,7 @@ def smoke(tmp, dev, smi):
         if got != want:
             diff = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b) \
                 if len(got) == len(want) else "length"
-            fail(f"{tag}: VCF body differs from the native-scored run "
+            fail(f"{tag}: VCF body differs from the reference run "
                  f"(first difference at line {diff})")
         if n_rec == 0:
             fail(f"{tag}: no VCF records")
@@ -1136,8 +1362,8 @@ def smoke(tmp, dev, smi):
         stages = sorted(m["stage_seconds"].items(), key=lambda kv: -kv[1])
         launches, scored, mode_b_scored = counts[tag]
         say("e2e", f"{tag}: {n_rec} records byte-identical to the "
-            f"native-scored run | card {loci / dt:.4g} loci/s ({dt:.2f} s), "
-            f"native-scored {loci / ref_dt:.4g} loci/s ({ref_dt:.2f} s) "
+            f"reference run | card {loci / dt:.4g} loci/s ({dt:.2f} s), "
+            f"reference {loci / ref_dt:.4g} loci/s ({ref_dt:.2f} s) "
             f"on {smi} | {m['num_dispatches']} batches, {m['num_syncs']} syncs")
         say("e2e", f"{tag} stage seconds: "
             + "  ".join(f"{k}={v:.3f}" for k, v in stages))
@@ -1148,16 +1374,19 @@ def smoke(tmp, dev, smi):
                 "VNTR smem+streamed": ["pairhmm_resident_smem",
                                        "pairhmm_streamed"],
                 "VNTR cluster": ["pairhmm_streamed_cluster"],
-                "STR mode B": ["pairhmm_resident_warp", "mode_b_cols"],
+                "STR mode B": ["pairhmm_resident_warp", "mode_b_artifacts",
+                               "mode_b_cols"],
                 "dryrun mode-b+haploid": ["pairhmm_resident_warp",
-                                          "mode_b_cols"]
+                                          "mode_b_artifacts", "mode_b_cols"],
+                "dryrun mode-b+haploid block": ["mode_b_artifacts",
+                                                "mode_b_cols_block"]
                 }.get(tag, ["pairhmm_resident_warp"])
         for k in need:
             if launches[k] == 0:
                 fail(f"{tag}: {k} was not launched")
         if scored["cpu"] or scored["host_f64"] or not scored["cuda"]:
             fail(f"{tag}: pairs scored off the card: {scored}")
-        if mode_b_scored["cpu"] or ("mode_b_cols" in need
+        if mode_b_scored["cpu"] or ("mode_b_artifacts" in need
                                     and not mode_b_scored["cuda"]):
             fail(f"{tag}: mode-B elements scored off the card: "
                  f"{mode_b_scored}")
@@ -1165,11 +1394,16 @@ def smoke(tmp, dev, smi):
     say("e2e", f"mode_b_cols: {len(shapes)} e2e launches; widest (B, R_max, "
         f"L_max, S_max, n_d) = {widest}; the widest rows of phase 2: "
         f"{mb['wide_shape']}")
-    mb_stages = results["STR mode B"][2]["stage_seconds"]
-    say("e2e", "STR mode B, mode-B stage seconds on the card: prepare (in "
-        f"Haplotype build) {mb_stages.get('Haplotype build', 0.0):.3f}, "
-        f"Mode B dispatch (row DP + marginalize) "
-        f"{mb_stages.get('Mode B dispatch', 0.0):.3f}")
+    for tag in ("STR mode B", "dryrun mode-b+haploid"):
+        st = results[tag][2]["stage_seconds"]
+        rst = refs[tag][2]["stage_seconds"]
+        say("e2e", f"{tag}, mode-B stage seconds (wall, Haplotype build "
+            "summed over the build threads): card (tables and rows on the "
+            f"card) Haplotype build {st.get('Haplotype build', 0.0):.3f}, "
+            f"Mode B dispatch {st.get('Mode B dispatch', 0.0):.3f}; reference "
+            "(host numpy tables, plain rows on the card) Haplotype build "
+            f"{rst.get('Haplotype build', 0.0):.3f}, Mode B dispatch "
+            f"{rst.get('Mode B dispatch', 0.0):.3f}")
 
     say("e2e", f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -1205,14 +1439,25 @@ def smoke(tmp, dev, smi):
                 "library_ms": None,
                 "shape": shape}
                for k, (shape, run_tag, pallas) in main.items()]
-    kernels.append({"name": "mode_b_cols", "route": "cuda",
-                    "source": "longtr_tpu_torch/csrc/mode_b.cu",
-                    "replaces": mode_b_line(),
-                    "launches": counts["STR mode B"][0]["mode_b_cols"],
-                    "max_abs_err": mb["max_abs_err"], "ms": mb["ms"],
-                    "plain_ms": mb["plain_ms"], "bound_ms": mb["bound_ms"],
-                    "bound_by": mb["bound_by"], "library_ms": None,
-                    "shape": mb["shape"]})
+    # mode B's kernels: the warp row kernel and the artifact kernel in the
+    # mode-B STR run, the block row kernel in the rerouted mode-B dryrun
+    for name, run_tag, replaces in (
+            ("mode_b_artifacts", "STR mode B",
+             def_line("longtr_tpu/pipeline/mode_b.py",
+                      "_artifact_table_batch")),
+            ("mode_b_cols", "STR mode B",
+             def_line("longtr_tpu/ops/mode_b_device.py", "mode_b_cols")),
+            ("mode_b_cols_block", "dryrun mode-b+haploid block",
+             def_line("longtr_tpu/ops/mode_b_device.py", "mode_b_cols"))):
+        k = mb[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "longtr_tpu_torch/csrc/mode_b.cu",
+                        "replaces": replaces,
+                        "launches": counts[run_tag][0][name],
+                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"], "library_ms": None,
+                        "shape": k["shape"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` (the pair-HMM kernels and the mode-B row DP) exposes a
-plain C interface, so ``nvcc`` compiles each into an object, all at once,
-and links them into one shared library, bound with ``ctypes``: no torch
-headers, no ``ninja``.  The build
-runs at first use, into ``longtr_tpu_torch/_build/``, and is keyed by a
-hash of every source and the flags, so an edited source rebuilds and an
-unchanged tree loads at once.  Any failure (no ``nvcc``, a compile error,
+Every ``csrc/*.cu`` (the pair-HMM kernels, mode B's artifact tables and
+row DP) exposes a plain C interface, so ``nvcc`` compiles each into an
+object, all at once, and links them into one shared library, bound with
+``ctypes``: no torch headers, no ``ninja``.  The build runs at first use,
+into ``longtr_tpu_torch/_build/``, and is keyed by a hash of every source
+and the flags, so an edited source rebuilds and an unchanged tree loads
+at once.  Any failure (no ``nvcc``, a compile error,
 a library that does not load) raises: there is no fallback.
 """
 
@@ -96,11 +96,21 @@ def _bind(lib) -> None:
     lib.pairhmm_streamed_cluster.argtypes = [p, p, p, p, p, p, i, i, i, i, p,
                                              p]
     lib.pairhmm_streamed_cluster.restype = i
+    f, d = ctypes.c_float, ctypes.c_double
     lib.mode_b_smem_bytes.argtypes = [i]
     lib.mode_b_smem_bytes.restype = ctypes.c_long
-    lib.mode_b_cols.argtypes = ([p] * 14 + [i] * 5
-                                + [ctypes.c_float, ctypes.c_float, i, p, p, p])
-    lib.mode_b_cols.restype = i
+    lib.mode_b_artifacts_smem_bytes.argtypes = [i, i]
+    lib.mode_b_artifacts_smem_bytes.restype = ctypes.c_long
+    for name in ("mode_b_warp_max_width", "mode_b_warp_max_nd"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.mode_b_cols_block.argtypes = [p] * 15 + [i] * 6 + [f, f, i, p, p, p]
+    lib.mode_b_cols_block.restype = i
+    lib.mode_b_cols_warp.argtypes = [p] * 15 + [i] * 6 + [f, f, p, p]
+    lib.mode_b_cols_warp.restype = i
+    lib.mode_b_artifacts.argtypes = ([p] * 10 + [i] * 4 + [d, d] + [i] * 3
+                                     + [p, i, p, p])
+    lib.mode_b_artifacts.restype = i
 
 
 def load_library():

@@ -5,8 +5,10 @@ Port of :mod:`longtr_tpu.ops.mode_b_device`.  Reference:
 
 The host (:mod:`longtr_tpu_torch.pipeline.mode_b`) precomputes, per element
 b (one read segment × haplotype config × side), the per-row char code, row
-kind and stutter ordinal, and a dense artifact table ``A[b, s, d, j]``; the
-device runs the whole row DP and returns, per row, the match score at the
+kind and stutter ordinal, and per stutter ordinal the index of its artifact
+table; the device builds the tables
+(:func:`longtr_tpu_torch.ops.mode_b_cuda.mode_b_artifacts`), runs the whole
+row DP on them in place and returns, per row, the match score at the
 element's last column.  Row kinds:
 
   0 flank row            — M/I/D recurrence (HapAligner.cpp:120-158)
@@ -17,8 +19,8 @@ element's last column.  Row kinds:
 :func:`mode_b_cols_plain` is the plain version: a Python loop over rows of
 torch ops, every expression in the JAX package's association order, so in
 float64 on the CPU it gives the bits of the JAX scan and of the host numpy
-path.  It is the reference of the CUDA kernel
-(:mod:`longtr_tpu_torch.ops.mode_b_cuda`), which gives its float32 bits on
+path.  It is the reference of the CUDA kernels
+(:mod:`longtr_tpu_torch.ops.mode_b_cuda`), which give its float32 bits on
 a card.  :func:`mode_b_cols` routes a call by where its tensors lie.
 """
 
@@ -36,7 +38,7 @@ mode_b_elements_scored = {"cuda": 0, "cpu": 0, "host_f64": 0}
 
 
 def mode_b_cols_plain(codes, quals, lw_tab, lc_tab, prefix, last, hapchar,
-                      kind, stut_ord, A, bl, d0, dstep, params, *, n_d):
+                      kind, stut_ord, A, tab, bl, d0, dstep, params, *, n_d):
     """Last-column match vectors for a batch of mode-B alignments.
 
     codes/quals: (B, L) uint8 read base codes and quality bytes; the
@@ -45,11 +47,12 @@ def mode_b_cols_plain(codes, quals, lw_tab, lc_tab, prefix, last, hapchar,
     prefix: (B, L) sequential prefix [0, cumsum(blc)[:-1]].
     last: (B,) index of the final valid column.
     hapchar/kind/stut_ord: (B, R) uint8 per-row char code, row kind,
-      stutter ordinal (which slice of ``A`` a kind-2 row uses).
-    A: (B, S, n_d, L) artifact scores (IMPOSSIBLE where base_len < 0, -inf
-      in d-padding).
-    bl/d0/dstep: (B, S) int32 repeat-block length, first artifact size and
-      artifact stride per stutter ordinal.
+      stutter ordinal (which of ``tab``'s tables a kind-2 row uses).
+    A: (NT, n_d, L) artifact tables (IMPOSSIBLE where base_len < 0, -inf
+      in d-padding), as the artifact kernel writes them.
+    tab/bl/d0/dstep: (B, S) int32 artifact table (a row of ``A``),
+      repeat-block length, first artifact size and artifact stride per
+      stutter ordinal.
     params: (7,) [i2i, i2m, d2d, d2m, m2m, m2i, m2d].
 
     Returns (B, R) M[row, last] in the dtype of the tables (float32 or
@@ -106,7 +109,7 @@ def mode_b_cols_plain(codes, quals, lw_tab, lc_tab, prefix, last, hapchar,
         # kind 2: stutter row, the artifact sizes summed in d order with
         # fast_lse's term dropping
         sord = stut_ord[:, r]
-        A_r = A[rows, sord]                                       # (B, nD, L)
+        A_r = A[tab[rows, sord].long()]                           # (B, nD, L)
         bl_r = bl[rows, sord].long()[:, None, None]
         dv = d0[rows, sord].long()[:, None, None] \
             + d_off * dstep[rows, sord].long()[:, None, None]     # (B, nD, 1)
@@ -133,24 +136,22 @@ def mode_b_cols_plain(codes, quals, lw_tab, lc_tab, prefix, last, hapchar,
 
 
 def mode_b_cols(codes, quals, lw_tab, lc_tab, prefix, last, hapchar, kind,
-                stut_ord, A, bl, d0, dstep, params, *, n_d):
+                stut_ord, A, tab, bl, d0, dstep, params, *, n_d):
     """Route a batch by where it lies: CPU tensors take the plain version,
-    float32 CUDA tensors the CUDA kernel; float64 on a card raises (the
-    kernel is float32, and no card tensor is sent to the plain version)."""
+    float32 CUDA tensors the CUDA kernels; float64 on a card raises (the
+    kernels are float32, and no card tensor is sent to the plain version)."""
+    args = (codes, quals, lw_tab, lc_tab, prefix, last, hapchar, kind,
+            stut_ord, A, tab, bl, d0, dstep, params)
     B = codes.shape[0]
     if codes.device.type == "cpu":
         mode_b_elements_scored["cpu"] += B
-        return mode_b_cols_plain(codes, quals, lw_tab, lc_tab, prefix, last,
-                                 hapchar, kind, stut_ord, A, bl, d0, dstep,
-                                 params, n_d=n_d)
+        return mode_b_cols_plain(*args, n_d=n_d)
     if lc_tab.dtype != torch.float32:
         raise ValueError(f"mode_b_cols on {codes.device} takes float32 "
                          f"tables, got {lc_tab.dtype}")
     from longtr_tpu_torch.ops import mode_b_cuda
     mode_b_elements_scored["cuda"] += B
-    return mode_b_cuda.mode_b_cols(codes, quals, lw_tab, lc_tab, prefix, last,
-                                   hapchar, kind, stut_ord, A, bl, d0, dstep,
-                                   params, n_d=n_d)
+    return mode_b_cuda.mode_b_cols(*args, n_d=n_d)
 
 
 def _pad_to(n: int, mult: int) -> int:

@@ -1,11 +1,16 @@
 """Mode-B read-vs-haplotype scoring (seed-split stutter HMM).
 
 Port of :mod:`longtr_tpu.pipeline.mode_b`, which cannot be imported
-without JAX.  The host code (seeds, row and artifact tables, the f64 host
-transcription ``score_read`` and the f64 seed marginalization) is the JAX
-package's, line for line; the device phase sends the tables to a
-``torch.device`` and runs :func:`longtr_tpu_torch.ops.mode_b_device.mode_b_cols`
-there (the CUDA kernel on a card, the plain torch rows on the CPU).
+without JAX.  The host code (seeds, row tables, the f64 host transcription
+``score_read`` and the f64 seed marginalization) is the JAX package's,
+line for line.  The artifact tables, which the JAX package builds on the
+host, are built on the device: the host phase hands over the reads' bytes
+and the (block, option) descriptors, and the device phase runs
+:func:`~longtr_tpu_torch.ops.mode_b_cuda.mode_b_artifacts` and then
+:func:`~longtr_tpu_torch.ops.mode_b_device.mode_b_cols` on their output
+(the CUDA kernels on a card, the plain torch versions on the CPU).  The
+host numpy tables of ``_artifact_table_batch`` stay as the reference
+(``reference=True``: numpy tables, plain rows).
 
 Reference: HapAligner.cpp — ``process_read`` short path (:855-991),
 ``align_seq_to_hap_short`` (:27-163), ``compute_aln_logprob`` (:165-233) and
@@ -26,11 +31,23 @@ import numpy as np
 import torch
 
 from longtr_tpu_torch.device import select_device
+from longtr_tpu_torch.ops.mode_b_artifacts import prefix_doubles
 from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE, MIN_SEED_DIST, StutterAligner, fast_lse
 from longtr_tpu_torch.utils.base_quality import log_prob_correct, log_prob_error
 from longtr_tpu_torch.utils.mathops import int_log
-from longtr_tpu_torch.ops.mode_b_device import _pad_to, mode_b_cols
+from longtr_tpu_torch.ops.mode_b_cuda import mode_b_artifacts
+from longtr_tpu_torch.ops.mode_b_device import (_pad_to, mode_b_cols,
+                                                mode_b_cols_plain)
 from longtr_tpu_torch.ops.pairhmm import AlignmentParams
+
+# The prepared arrays the row DP reads, in mode_b_cols' order, around the
+# artifact tables ("A_tab") that sit between them; and the arrays the
+# artifact tables are built from, in mode_b_artifacts' order.
+ROW_KEYS = ("codes", "quals_a", "lw_tab", "lc_tab", "pre_a", "last",
+            "hapchar", "kind", "stut_ord", "A_tab", "tab", "bl_a", "d0_a",
+            "dstep_a", "params")
+ARTIFACT_KEYS = ("seg_codes", "seg_quals", "seg_len", "lw64", "lc64", "tdesc",
+                 "blk_bytes", "upstream", "priors", "int_log")
 
 
 class _RevRepeatInfo:
@@ -115,17 +132,19 @@ def calc_seed_base(aln, repeat_starts, repeat_ends, hap_start, hap_end):
 class ModeBAligner:
     """Scores reads against all haplotype configs with the stutter HMM.
 
-    ``device`` is where :meth:`score_reads_batch_finish` runs the row DP
-    (default: :func:`~longtr_tpu_torch.device.select_device`'s, the first
-    card unless ``LONGTR_TORCH_DEVICE`` names another); ``cols_fn`` replaces
-    :func:`~longtr_tpu_torch.ops.mode_b_device.mode_b_cols` there (a
-    program's reference run gives it the plain version).
+    ``device`` is where :meth:`score_reads_batch_finish` builds the
+    artifact tables and runs the row DP (default:
+    :func:`~longtr_tpu_torch.device.select_device`'s, the first card
+    unless ``LONGTR_TORCH_DEVICE`` names another).  ``reference=True``
+    takes the reference path instead: the host phase builds the tables in
+    numpy (``_artifact_table_batch``, the JAX package's code) and the
+    device runs the plain rows on them (a program's reference run).
     """
 
     def __init__(self, haplotype, alignment_params=None,
-                 device: torch.device | None = None, cols_fn=None):
+                 device: torch.device | None = None, reference: bool = False):
         self.device = select_device(device)
-        self.cols_fn = cols_fn or mode_b_cols
+        self.reference = reference
         self.hap = haplotype
         p = (AlignmentParams.from_list(alignment_params) if alignment_params
              else AlignmentParams())
@@ -386,9 +405,11 @@ class ModeBAligner:
         return self.score_reads_batch_finish(prep)
 
     def score_reads_batch_prepare(self, alns, seeds, dtype=np.float32):
-        """Host phase: row tables + artifact tables (cached per
-        (read, side, block, option) — strictly less StutterAligner work
-        than the per-config host path).  Returns an opaque dict for
+        """Host phase: the row tables and per-element arrays, and what the
+        device builds the artifact tables from (the reversed read segments
+        of each side, the (side, block, option) descriptors, and the
+        element -> table index); with ``reference=True`` the artifact tables
+        themselves, built here in numpy.  Returns an opaque dict for
         :meth:`score_reads_batch_finish`, or None if any config falls
         outside the device kernel envelope."""
         configs = list(self.hap.all_configs())
@@ -459,45 +480,31 @@ class ModeBAligner:
         # small, and each is exact: the device gathers the same dtype values.
         codes = np.zeros((B_pad, L_max), dtype=np.uint8)
         quals_a = np.zeros((B_pad, L_max), dtype=np.uint8)
-        lw_tab = np.array([log_prob_error(chr(i)) for i in range(256)],
-                          dtype=dtype)
-        lc_tab = np.array([log_prob_correct(chr(i)) for i in range(256)],
-                          dtype=dtype)
         pre_a = np.zeros((B_pad, L_max), dtype=dtype)
         last = np.zeros(B_pad, dtype=np.int32)
         hapchar = np.zeros((B_pad, R_max), dtype=np.uint8)
         kind = np.full((B_pad, R_max), 3, dtype=np.uint8)
         stut_ord = np.zeros((B_pad, R_max), dtype=np.uint8)
-        A = np.full((B_pad, S_max, n_d, L_max), -np.inf, dtype=dtype)
+        tab = np.zeros((B_pad, S_max), dtype=np.int32)
         bl_a = np.ones((B_pad, S_max), dtype=np.int32)
         d0_a = np.zeros((B_pad, S_max), dtype=np.int32)
         dstep_a = np.ones((B_pad, S_max), dtype=np.int32)
         lprob = np.zeros((P, 2))
 
         seg_cache = {}
+        side_segs = {0: [], 1: []}      # (bases, quality bytes) per segment
         for p in range(P):
             for side in (0, 1):
-                seg_cache[(p, side)] = seg_arrays(p, side)
-        # artifact tables for ALL reads per (side, block, option) in one
-        # read-batched call chain
-        art_cache = {}
+                arrs = seg_cache[(p, side)] = seg_arrays(p, side)
+                L = arrs[7]
+                side_segs[side].append((arrs[3][:L], arrs[4][:L]))
+        # one artifact table per (side, block, option) and read segment:
+        # table t of segment p is row t * P + p of the device's tables
         needed = sorted({(side, bi, opt)
                          for k in range(K) for side in (0, 1)
                          for (bi, opt) in sides[k][side][3]})
-        # the reversed read-side arrays depend only on the side, not the
-        # (block, option): encode once per side and share across the chain
-        side_segs = {side: [seg_cache[(p, side)][:3] for p in range(P)]
-                     for side in (0, 1)}
-        side_enc = {side: StutterAligner.encode_segs_batch(side_segs[side])
-                    for side in (0, 1)}
-        for side, bi, opt in needed:
-            blocks = self.fw_blocks if side == 0 else self.rev_blocks
-            saln = self._fw_stutter if side == 0 else self._rev_stutter
-            batch = self._artifact_table_batch(blocks, saln, bi, opt,
-                                               side_segs[side], n_d, L_max,
-                                               enc=side_enc[side])
-            for p in range(P):
-                art_cache[(p, side, bi, opt)] = batch[p]
+        t_index = {key: t for t, key in enumerate(needed)}
+        art = self.artifact_inputs(needed, side_segs, L_max, n_d)
         b = 0
         elem = {}
         for p in range(P):
@@ -506,7 +513,6 @@ class ModeBAligner:
                     fw, rv, _seqs = sides[k]
                     rows = fw if side == 0 else rv
                     blocks = self.fw_blocks if side == 0 else self.rev_blocks
-                    saln = self._fw_stutter if side == 0 else self._rev_stutter
                     (sseq, sw, sc, cod, qb, pre, lp, L) = seg_cache[(p, side)]
                     codes[b] = cod
                     quals_a[b] = qb
@@ -518,7 +524,7 @@ class ModeBAligner:
                     stut_ord[b, :hs] = so
                     lprob[p, side] = lp
                     for s_i, (bi, opt) in enumerate(sinfo):
-                        A[b, s_i] = art_cache[(p, side, bi, opt)]
+                        tab[b, s_i] = t_index[(side, bi, opt)] * P + p
                         blk = blocks[bi]
                         bl_a[b, s_i] = len(blk.get_seq(opt))
                         d0_a[b, s_i] = blk.max_del
@@ -528,29 +534,121 @@ class ModeBAligner:
 
         params = np.array([self.i2i, self.i2m, self.d2d, self.d2m,
                            self.m2m, self.m2i, self.m2d], dtype=dtype)
-        return dict(codes=codes, quals_a=quals_a, lw_tab=lw_tab,
-                    lc_tab=lc_tab, pre_a=pre_a,
-                    last=last, hapchar=hapchar, kind=kind,
-                    stut_ord=stut_ord, A=A, bl_a=bl_a, d0_a=d0_a,
+        prep = dict(codes=codes, quals_a=quals_a,
+                    lw_tab=art["lw64"].astype(dtype),
+                    lc_tab=art["lc64"].astype(dtype), pre_a=pre_a, last=last, hapchar=hapchar, kind=kind,
+                    stut_ord=stut_ord, tab=tab, bl_a=bl_a, d0_a=d0_a,
                     dstep_a=dstep_a, params=params, n_d=n_d, dtype=dtype,
                     alns=alns, seeds=seeds, segs=segs, configs=configs,
-                    sides=sides, elem=elem, lprob=lprob, P=P, K=K)
+                    sides=sides, elem=elem, lprob=lprob, P=P, K=K, **art)
+        if self.reference:
+            prep["A_tab"] = self.host_artifact_tables(prep)
+        return prep
+
+    def artifact_inputs(self, tables, side_segs, L_max, n_d):
+        """What the device builds the artifact tables from
+        (:mod:`longtr_tpu_torch.ops.mode_b_artifacts`): each side's read
+        segments reversed (``encode_segs_batch``'s order) as base and
+        quality bytes, and per (side, block, option) of ``tables`` one
+        descriptor row, prior row and slices of the block-byte and
+        upstream arrays.  ``side_segs[side]`` lists the segments of a side
+        in their own order as (base bytes, quality bytes) uint8 arrays of
+        at most ``L_max`` bytes."""
+        P = len(side_segs[0])
+        seg_codes = np.zeros((2, P, L_max), dtype=np.uint8)
+        seg_quals = np.zeros((2, P, L_max), dtype=np.uint8)
+        seg_len = np.zeros((2, P), dtype=np.int32)
+        for side in (0, 1):
+            for p, (cod, qb) in enumerate(side_segs[side]):
+                L = len(cod)
+                seg_codes[side, p, :L] = cod[:L][::-1]
+                seg_quals[side, p, :L] = qb[:L][::-1]
+                seg_len[side, p] = L
+        needed = list(tables)
+        T = len(needed)
+        tdesc = np.zeros((T, 9), dtype=np.int32)
+        priors = np.zeros((T, n_d))
+        blk_parts, up_parts = [], []
+        blk_off = up_off = 0
+        n_log = 2
+        for t, (side, bi, opt) in enumerate(needed):
+            blocks = self.fw_blocks if side == 0 else self.rev_blocks
+            saln = self._fw_stutter if side == 0 else self._rev_stutter
+            blk, sa = blocks[bi], saln[bi][opt]
+            d_list = list(range(blk.max_del, blk.max_ins + 1, blk.period))
+            if 1 + max(sa.num_deletions, 1) + max(sa.num_insertions, 1) \
+                    > prefix_doubles(n_d):
+                raise ValueError(f"block {bi} option {opt}: deletion and "
+                                 "insertion multiples exceed the artifact "
+                                 "sizes")
+            tdesc[t] = (side, sa.block_len, blk.period, blk.max_del,
+                        len(d_list), sa.num_deletions, sa.num_insertions,
+                        blk_off, up_off)
+            for di, D in enumerate(d_list):
+                priors[t, di] = blk.log_prob_pcr_artifact(opt, D)
+            blk_parts.append(np.frombuffer(sa.block_seq[::-1].encode(),
+                                           dtype=np.uint8))
+            ups = np.concatenate([np.asarray(u, dtype=np.int64)
+                                  for u in sa.upstream])
+            up_parts.append(ups.astype(np.int32))
+            blk_off += sa.block_len
+            up_off += len(ups)
+            n_log = max(n_log, sa.block_len + 2)
+        return dict(seg_codes=seg_codes, seg_quals=seg_quals, seg_len=seg_len,
+                    lw64=np.array([log_prob_error(chr(i)) for i in range(256)]),
+                    lc64=np.array([log_prob_correct(chr(i))
+                                   for i in range(256)]),
+                    tdesc=tdesc, priors=priors,
+                    blk_bytes=np.concatenate(blk_parts + [np.zeros(1, np.uint8)]),
+                    upstream=np.concatenate(up_parts + [np.zeros(1, np.int32)]),
+                    int_log=np.array([int_log(n) for n in range(n_log)]),
+                    tables=needed)
+
+    def host_artifact_tables(self, prep):
+        """The reference: ``prep``'s artifact tables built on the host with
+        the JAX package's numpy code, (T * P, n_d, L) in ``prep``'s
+        dtype, rows as the device's."""
+        P, n_d, dtype = prep["P"], prep["n_d"], prep["dtype"]
+        L_max = prep["seg_codes"].shape[2]
+        side_segs = {}
+        for side in (0, 1):
+            segs = []
+            for p in range(P):
+                L = int(prep["seg_len"][side, p])
+                q = prep["seg_quals"][side, p, :L][::-1]
+                segs.append((prep["seg_codes"][side, p, :L][::-1]
+                             .tobytes().decode(), prep["lw64"][q],
+                             prep["lc64"][q]))
+            side_segs[side] = (segs, StutterAligner.encode_segs_batch(segs))
+        tables = []
+        for side, bi, opt in prep["tables"]:
+            blocks = self.fw_blocks if side == 0 else self.rev_blocks
+            saln = self._fw_stutter if side == 0 else self._rev_stutter
+            segs, enc = side_segs[side]
+            tables.append(self._artifact_table_batch(
+                blocks, saln, bi, opt, segs, n_d, L_max, enc=enc))
+        return np.concatenate(tables).astype(dtype)
 
     def score_reads_batch_finish(self, prep, timings=None):
-        """Finish phase: the row DP on ``self.device`` + f64 seed
-        marginalization on the host.
+        """Finish phase: the artifact tables and the row DP on
+        ``self.device`` (with ``reference=True``: the host's tables and the
+        plain rows), then the f64 seed marginalization on the host.
 
         ``timings`` (optional dict) accumulates the two sub-phase walls
-        under ``dispatch_s`` (copy to the device, the row DP and the copy
-        back, which waits for it) and ``marginalize_s`` (the f64 seed
-        marginalization whose reduction order is part of the parity
+        under ``dispatch_s`` (copy to the device, the two kernels and the
+        copy back, which waits for them) and ``marginalize_s`` (the f64
+        seed marginalization whose reduction order is part of the parity
         contract, DESIGN.md §2)."""
         t0 = time.time()
-        tensors = [torch.from_numpy(prep[k]).to(self.device) for k in (
-            "codes", "quals_a", "lw_tab", "lc_tab", "pre_a", "last",
-            "hapchar", "kind", "stut_ord", "A", "bl_a", "d0_a", "dstep_a",
-            "params")]
-        cols = self.cols_fn(*tensors, n_d=prep["n_d"])
+        if "A_tab" in prep:
+            cols_fn = mode_b_cols_plain
+            A = torch.from_numpy(prep["A_tab"]).to(self.device)
+        else:
+            cols_fn = mode_b_cols
+            A = self.artifact_tables(prep)
+        args = [A if k == "A_tab" else torch.from_numpy(prep[k]).to(self.device)
+                for k in ROW_KEYS]
+        cols = cols_fn(*args, n_d=prep["n_d"])
         cols = cols.cpu().numpy().astype(np.float64)
         t1 = time.time()
         if timings is not None:
@@ -574,6 +672,14 @@ class ModeBAligner:
             timings["marginalize_s"] = (timings.get("marginalize_s", 0.0)
                                         + time.time() - t1)
         return out
+
+    def artifact_tables(self, prep):
+        """``prep``'s artifact tables built on ``self.device`` (the CUDA
+        kernel on a card, the plain version on the CPU), in its dtype."""
+        dtype = torch.from_numpy(np.zeros(0, dtype=prep["dtype"])).dtype
+        return mode_b_artifacts(
+            *[torch.from_numpy(prep[k]).to(self.device) for k in ARTIFACT_KEYS],
+            n_d=prep["n_d"], dtype=dtype)
 
     # ------------------------------------------------------------------
     def score_read(self, aln, seed_base: int) -> np.ndarray:

@@ -282,7 +282,8 @@ def score_pairs_async(pairs, params=None, scorer=None) -> ScoreHandle:
     Encodes, pads (length-bucketed + batch ladder) and hands each padded
     batch to ``scorer(hap, hap_lens, read, read_lens, full_lens, params)``
     (by default :func:`~longtr_tpu_torch.ops.pairhmm.pairhmm_batch_auto` on
-    the CPU).
+    :func:`~longtr_tpu_torch.device.select_device`'s device, the first card
+    unless ``LONGTR_TORCH_DEVICE`` names another).
     This is the single funnel every locus's alignment work goes through, so
     the cross-locus scheduler can fuse many loci into one call and overlap
     device compute with the next window's host work.
@@ -468,11 +469,11 @@ class SeqStutterGenotyper:
                  ref_vcf=None, logger=None, skip_assembly: bool = True,
                  indel_flank_len: int = 5, switch_old_align_len: int = 0,
                  alignment_params=None, scorer=None, device=None,
-                 mode_b_scorer=None):
+                 mode_b_reference=False):
         self.region_group = region_group
         self.scorer = scorer
-        self.device = device              # where mode B runs its row DP
-        self.mode_b_scorer = mode_b_scorer
+        self.device = device              # where mode B runs its device work
+        self.mode_b_reference = mode_b_reference
         self.haploid = haploid
         self.alns = alns
         self.sample_names = list(sample_names)
@@ -582,7 +583,8 @@ class SeqStutterGenotyper:
         from longtr_tpu_torch.pipeline.mode_b import (ModeBAligner,
                                                       calc_seed_base)
         aligner = ModeBAligner(self.haplotype, self.alignment_params,
-                               device=self.device, cols_fn=self.mode_b_scorer)
+                               device=self.device,
+                               reference=self.mode_b_reference)
         hap_start = self.haplotype.blocks[0].start
         hap_end = self.haplotype.blocks[-1].end
         A = self.haplotype.num_combs()

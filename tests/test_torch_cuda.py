@@ -26,6 +26,7 @@ from longtr_tpu_torch.ops import mode_b_cuda
 from longtr_tpu_torch.ops import mode_b_device
 from longtr_tpu_torch.ops import pairhmm as port
 from longtr_tpu_torch.ops import pairhmm_cuda
+from longtr_tpu_torch.pipeline.mode_b import ARTIFACT_KEYS, ROW_KEYS
 
 BASES = np.array(list("ACGT"))
 CUSTOM = [-2.0, -0.3, -1.5, -0.25, -0.0001, -8.0, -9.0]
@@ -491,14 +492,57 @@ def mode_b_case(name, aligner_cls, cls=None):
     return aligner, [alns[i] for i in keep], [seeds[i] for i in keep]
 
 
-TABLE_KEYS = ("codes", "quals_a", "lw_tab", "lc_tab", "pre_a", "last",
-              "hapchar", "kind", "stut_ord", "A", "bl_a", "d0_a", "dstep_a",
-              "params")
+# the prepared arrays of the row DP and of the artifact tables, in the
+# kernels' argument order
+TABLE_KEYS = ROW_KEYS
+
+
+def artifact_case(trial, aligner_cls, cls=None):
+    """Seeded random artifact-table inputs: one repeat block (a homopolymer
+    on even trials, random bases on odd ones, so upstream matches both jump
+    and rescan; some blocks shorter than the largest deletion) with up to
+    three alternates, and each side's read segments (empty, one-base and
+    up to 69 bases; padding past the longest).  Returns (aligner, tables,
+    side_segs, L_max, n_d): the inputs are
+    ``aligner.artifact_inputs(tables, side_segs, L_max, n_d)``."""
+    cls = cls or port_classes()
+    rng = np.random.default_rng(5100 + trial)
+    lf = _rand(rng, int(rng.integers(3, 20)))
+    rf = _rand(rng, int(rng.integers(3, 20)))
+    rep_len = int(rng.integers(1, 30))
+    rep = "A" * rep_len if trial % 2 == 0 else _rand(rng, rep_len)
+    sm = cls.default_stutter_model().with_period(1)
+    rs = 1000 + len(lf)
+    rb = cls.RepeatBlock(rs, rs + rep_len, rep, 1, sm)
+    for d in sorted({int(x) for x in rng.integers(-6, 7, 3)} - {0}):
+        if rep_len + d >= 1:
+            rb.add_alternate(rep[:rep_len + d] if d < 0
+                             else rep + _rand(rng, d))
+    hap = cls.Haplotype([cls.HapBlock(1000, rs, lf), rb,
+                         cls.HapBlock(rs + rep_len, rs + rep_len + len(rf),
+                                      rf)])
+    aligner = aligner_cls(hap)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    side_segs = {}
+    for side in (0, 1):
+        lens = [0, 1] + [int(x) for x in rng.integers(0, 70, 4)]
+        side_segs[side] = [(rng.choice(acgt, L),
+                            rng.integers(33, 75, L).astype(np.uint8))
+                           for L in lens]
+    L_max = max(len(c) for ss in side_segs.values() for c, _q in ss) + 5
+    tables = [(side, bi, opt) for side in (0, 1)
+              for bi, al in enumerate(aligner._fw_stutter if side == 0
+                                      else aligner._rev_stutter) if al
+              for opt in range(len(al))]
+    n_d = len(range(rb.max_del, rb.max_ins + 1, rb.period))
+    return aligner, tables, side_segs, L_max, n_d
 
 
 def synthetic_tables(rng, B, L, R, S, n_d, dtype=np.float32):
     """Random mode-B row tables: every row kind, stutter rows over S
-    ordinals, IMPOSSIBLE and -inf artifact entries, `last` anywhere."""
+    ordinals, B * S + 3 artifact tables with IMPOSSIBLE and -inf entries
+    and a random table per element and ordinal, `last` anywhere before
+    the three padding columns."""
     from longtr_tpu_torch.utils.base_quality import (log_prob_correct,
                                                      log_prob_error)
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -524,14 +568,16 @@ def synthetic_tables(rng, B, L, R, S, n_d, dtype=np.float32):
             if r + 1 < R:
                 kind[b, r + 1] = 1
             r += 2
-    A = rng.uniform(-30, 0, (B, S, n_d, L)).astype(dtype)
+    NT = B * S + 3
+    A = rng.uniform(-30, 0, (NT, n_d, L)).astype(dtype)
     A[rng.random(A.shape) < 0.1] = IMPOSSIBLE
-    A[:, :, n_d - 2:, :] = -np.inf
-    A[:, :, :, L - 3:] = -np.inf
+    A[:, n_d - 2:, :] = -np.inf
+    A[:, :, L - 3:] = -np.inf
     return dict(codes=codes, quals_a=quals, lw_tab=lw, lc_tab=lc,
-                pre_a=prefix, last=rng.integers(0, L, B).astype(np.int32),
+                pre_a=prefix, last=rng.integers(0, L - 3, B).astype(np.int32),
                 hapchar=rng.choice(acgt, (B, R)), kind=kind, stut_ord=stut,
-                A=A, bl_a=rng.integers(1, 12, (B, S)).astype(np.int32),
+                A_tab=A, tab=rng.integers(0, NT, (B, S)).astype(np.int32),
+                bl_a=rng.integers(1, 12, (B, S)).astype(np.int32),
                 d0_a=-rng.integers(0, 6, (B, S)).astype(np.int32),
                 dstep_a=rng.integers(1, 3, (B, S)).astype(np.int32),
                 params=np.array([-1.0, -0.458675, -1.0, -0.458675,
@@ -545,25 +591,71 @@ def _tables_on(prep, device):
             for k in TABLE_KEYS]
 
 
+def _card_aligner(device, reference=False):
+    from longtr_tpu_torch.pipeline.mode_b import ModeBAligner
+    return lambda hap, params=None: ModeBAligner(hap, params, device=device,
+                                                 reference=reference)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(MODE_B_CASES))
 def test_mode_b_kernel_bit_identical(cuda_device, case, monkeypatch):
-    """The kernel, with its rows on chip (default and 32 threads, so
-    threads own several columns) and on the workspace, equals the plain
-    rows on the card bit for bit."""
-    from longtr_tpu_torch.pipeline.mode_b import ModeBAligner
-    aligner, alns, seeds = mode_b_case(case, ModeBAligner)
+    """Both row kernels on the host's tables, the warp kernel (the route
+    of these widths) and the block kernel with its rows on chip (default
+    and 32 threads, so threads own several columns) and on the workspace,
+    equal the plain rows on the card bit for bit."""
+    aligner, alns, seeds = mode_b_case(case, _card_aligner(cuda_device, True))
     prep = aligner.score_reads_batch_prepare(alns, seeds)
     g = _tables_on(prep, cuda_device)
-    want = mode_b_device.mode_b_cols_plain(*g, n_d=prep["n_d"])
-    outs = [mode_b_cuda.mode_b_cols(*g, n_d=prep["n_d"]),
-            mode_b_cuda.mode_b_cols(*g, n_d=prep["n_d"], threads=32)]
+    n_d = prep["n_d"]
+    want = mode_b_device.mode_b_cols_plain(*g, n_d=n_d)
+    mode_b_cuda.reset_launches()
+    outs = [mode_b_cuda.mode_b_cols(*g, n_d=n_d),
+            mode_b_cuda.mode_b_cols(*g, n_d=n_d, variant="block"),
+            mode_b_cuda.mode_b_cols(*g, n_d=n_d, variant="block", threads=32)]
     monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
-    outs.append(mode_b_cuda.mode_b_cols(*g, n_d=prep["n_d"]))
+    outs.append(mode_b_cuda.mode_b_cols(*g, n_d=n_d, variant="block"))
     torch.cuda.synchronize()
+    assert mode_b_cuda.launches == {"mode_b_artifacts": 0, "mode_b_cols": 1,
+                                    "mode_b_cols_block": 3}
     for out in outs:
         assert out.dtype == torch.float32 and out.shape == want.shape
         assert torch.equal(out, want), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1024, 1025])
+def test_mode_b_warp_block_edge(cuda_device, L):
+    """At the warp kernel's widest rows and one column more: the router's
+    kernel and the other one equal the plain rows."""
+    prep = synthetic_tables(np.random.default_rng(L), 5, L, 30, 2, 13)
+    g = _tables_on(prep, cuda_device)
+    want = mode_b_device.mode_b_cols_plain(*g, n_d=13)
+    mode_b_cuda.reset_launches()
+    got = mode_b_device.mode_b_cols(*g, n_d=13)
+    routed = "mode_b_cols" if L <= 1024 else "mode_b_cols_block"
+    assert mode_b_cuda.launches[routed] == 1
+    assert torch.equal(got, want)
+    assert torch.equal(mode_b_cuda.mode_b_cols(*g, n_d=13, variant="block"),
+                       want)
+    if L <= 1024:
+        assert torch.equal(mode_b_cuda.mode_b_cols(*g, n_d=13,
+                                                   variant="warp"), want)
+    else:
+        with pytest.raises(ValueError, match="warp kernel"):
+            mode_b_cuda.mode_b_cols(*g, n_d=13, variant="warp")
+
+
+@pytest.mark.gpu
+def test_mode_b_many_artifact_sizes_take_block(cuda_device):
+    """More artifact sizes than the warp kernel holds in registers go to
+    the block kernel."""
+    prep = synthetic_tables(np.random.default_rng(17), 4, 64, 20, 1, 17)
+    g = _tables_on(prep, cuda_device)
+    mode_b_cuda.reset_launches()
+    got = mode_b_device.mode_b_cols(*g, n_d=17)
+    assert mode_b_cuda.launches["mode_b_cols_block"] == 1
+    assert torch.equal(got, mode_b_device.mode_b_cols_plain(*g, n_d=17))
 
 
 @pytest.mark.gpu
@@ -578,20 +670,21 @@ def test_mode_b_kernel_wider_than_shared_memory(cuda_device):
     got = mode_b_device.mode_b_cols(*g, n_d=prep["n_d"])
     want = mode_b_device.mode_b_cols_plain(*g, n_d=prep["n_d"])
     torch.cuda.synchronize()
-    assert mode_b_cuda.launches == {"mode_b_cols": 1}
+    assert mode_b_cuda.launches == {"mode_b_artifacts": 0, "mode_b_cols": 0,
+                                    "mode_b_cols_block": 1}
     assert got.device == cuda_device and torch.equal(got, want)
 
 
 @pytest.mark.gpu
 def test_mode_b_cuda_routing(cuda_device):
-    """mode_b_cols launches the kernel for float32 card tensors (one count
+    """mode_b_cols launches a kernel for float32 card tensors (one count
     per launch) and raises for float64 ones."""
     prep = synthetic_tables(np.random.default_rng(8), 5, 40, 16, 1, 7)
     g = _tables_on(prep, cuda_device)
     mode_b_cuda.reset_launches()
     out = mode_b_device.mode_b_cols(*g, n_d=prep["n_d"])
     torch.cuda.synchronize()
-    assert mode_b_cuda.launches == {"mode_b_cols": 1}
+    assert mode_b_cuda.launches["mode_b_cols"] == 1
     assert torch.equal(out, mode_b_device.mode_b_cols_plain(
         *g, n_d=prep["n_d"]))
     g64 = _tables_on(synthetic_tables(np.random.default_rng(8), 5, 40, 16, 1,
@@ -600,4 +693,79 @@ def test_mode_b_cuda_routing(cuda_device):
         mode_b_device.mode_b_cols(*g64, n_d=prep["n_d"])
     with pytest.raises(ValueError, match="dtype"):
         mode_b_cuda.mode_b_cols(*g64, n_d=prep["n_d"])
-    assert mode_b_cuda.launches == {"mode_b_cols": 1}
+    assert sum(mode_b_cuda.launches.values()) == 1
+
+
+def _artifact_inputs_on(inp, device):
+    return [torch.from_numpy(np.ascontiguousarray(inp[k])).to(device)
+            for k in ARTIFACT_KEYS]
+
+
+def _artifact_kernel_vs_host(aligner, inp, n_d, P, device):
+    """The artifact kernel's float32 tables against the host numpy
+    code's (tolerance 0) and its float64 values within rtol 1e-12 (a
+    last-bit exp/log difference); returns the float64 entries that
+    differ."""
+    g = _artifact_inputs_on(inp, device)
+    host = aligner.host_artifact_tables(dict(inp, P=P, n_d=n_d,
+                                             dtype=np.float64))
+    got32 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d)
+    got64 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert got32.dtype == torch.float32 and got32.shape == host.shape
+    np.testing.assert_array_equal(got32.cpu().numpy(),
+                                  host.astype(np.float32))
+    np.testing.assert_allclose(got64.cpu().numpy(), host, rtol=1e-12, atol=0)
+    return int((got64.cpu().numpy() != host).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trial", range(12))
+def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
+                                               monkeypatch):
+    """Random repeat blocks (homopolymers and not, shorter than the
+    largest deletion), empty and one-base segments, padding: the kernel's
+    tables equal the host's, with the prefixes in shared memory and on the
+    workspace."""
+    aligner, tables, ss, L_max, n_d = artifact_case(
+        trial, _card_aligner(cuda_device))
+    inp = aligner.artifact_inputs(tables, ss, L_max, n_d)
+    mode_b_cuda.reset_launches()
+    _artifact_kernel_vs_host(aligner, inp, n_d, len(ss[0]), cuda_device)
+    monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
+    _artifact_kernel_vs_host(aligner, inp, n_d, len(ss[0]), cuda_device)
+    assert mode_b_cuda.launches["mode_b_artifacts"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(MODE_B_CASES))
+def test_mode_b_card_path_equals_host_tables(cuda_device, case):
+    """The default path on the card (both kernels) gives the LLs of the
+    reference path (host numpy tables, plain rows on the card) exactly,
+    and its tables equal the host's."""
+    card, alns, seeds = mode_b_case(case, _card_aligner(cuda_device))
+    ref, _a, _s = mode_b_case(case, _card_aligner(cuda_device, True))
+    prep = card.score_reads_batch_prepare(alns, seeds)
+    assert "A_tab" not in prep
+    _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"], cuda_device)
+    mode_b_cuda.reset_launches()
+    got = card.score_reads_batch_finish(prep)
+    assert mode_b_cuda.launches == {"mode_b_artifacts": 1, "mode_b_cols": 1,
+                                    "mode_b_cols_block": 0}
+    want = ref.score_reads_batch(alns, seeds)
+    assert sum(mode_b_cuda.launches.values()) == 2
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_mode_b_artifacts_refuses_what_it_cannot_take(cuda_device):
+    aligner, tables, ss, L_max, n_d = artifact_case(
+        0, _card_aligner(cuda_device))
+    g = _artifact_inputs_on(aligner.artifact_inputs(tables, ss, L_max, n_d),
+                            cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        mode_b_cuda.mode_b_artifacts(*g[:3], g[3].float(), *g[4:], n_d=n_d)
+    with pytest.raises(ValueError, match="shape"):
+        mode_b_cuda.mode_b_artifacts(*g, n_d=n_d + 1)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float16)

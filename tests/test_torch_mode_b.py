@@ -2,7 +2,11 @@
 rows of ops.mode_b_device) against longtr_tpu's, on the CPU.
 
 * The host phase is the JAX package's code: its table dict equals
-  longtr_tpu's array for array.
+  longtr_tpu's array for array, and the artifact tables it builds on the
+  reference path (``reference=True``, numpy) equal longtr_tpu's wherever
+  an element reads them (the port keeps one table per (side, block,
+  option, read) and an index per element, where longtr_tpu copies a table
+  per element).
 * float64: the plain rows equal the host numpy transcription
   (``_align_short``, itself held to HapAligner.cpp) on every real row,
   tolerance 0, and the marginalized LLs equal both the host ``score_read``
@@ -16,7 +20,9 @@ rows of ops.mode_b_device) against longtr_tpu's, on the CPU.
   differ in the last bit on ~10% of inputs.
 
 The fixtures live in tests/test_torch_cuda.py, whose `gpu` tests hold the
-CUDA kernel to the plain rows bit for bit on a card.
+CUDA kernels to the plain versions and the host tables bit for bit on a
+card; tests/test_torch_mode_b_artifacts.py holds the plain artifact tables
+to longtr_tpu's table code.
 """
 
 import functools
@@ -63,8 +69,14 @@ def _port_cols(prep):
         n_d=prep["n_d"]).numpy()
 
 
+def per_element_tables(prep):
+    """longtr_tpu's (B, S, n_d, L) layout of the port's indexed tables."""
+    return prep["A_tab"][prep["tab"]]
+
+
 def _jax_cols(prep):
-    args = [prep[k] for k in TABLE_KEYS]
+    args = [per_element_tables(prep) if k == "A_tab" else prep[k]
+            for k in TABLE_KEYS if k != "tab"]
     if prep["lc_tab"].dtype == np.float64:
         with jax.enable_x64():
             return np.asarray(jax_mode_b_cols(*args, n_d=prep["n_d"]))
@@ -73,24 +85,32 @@ def _jax_cols(prep):
 
 @pytest.mark.parametrize("case", CASES)
 def test_prepare_tables_equal_jax(case):
-    port, alns, seeds = mode_b_case(case, ModeBAligner)
+    port, alns, seeds = mode_b_case(
+        case, functools.partial(ModeBAligner, reference=True))
     jaxa, jalns, jseeds = mode_b_case(case, JaxAligner, jax_classes())
     assert jseeds == seeds
     for dtype in (np.float32, np.float64):
         got = port.score_reads_batch_prepare(alns, seeds, dtype)
         want = jaxa.score_reads_batch_prepare(jalns, jseeds, dtype)
-        assert got.keys() == want.keys()
+        assert set(want) - set(got) == {"A"}
         for k, v in want.items():
-            if isinstance(v, np.ndarray):
+            if isinstance(v, np.ndarray) and k != "A":
                 assert got[k].dtype == v.dtype, k
                 np.testing.assert_array_equal(got[k], v, err_msg=k)
+        # the artifact tables every element's stutter rows read
+        assert got["A_tab"].dtype == want["A"].dtype
+        for (p, k, side), b in got["elem"].items():
+            n_s = len(got["sides"][k][side][3])
+            np.testing.assert_array_equal(
+                got["A_tab"][got["tab"][b, :n_s]], want["A"][b, :n_s])
         for k in ("n_d", "P", "K", "elem", "configs", "seeds"):
             assert got[k] == want[k], k
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_mode_b_cols_f64_exact(case):
-    aligner, alns, seeds = mode_b_case(case, ModeBAligner)
+    aligner, alns, seeds = mode_b_case(
+        case, functools.partial(ModeBAligner, reference=True))
     prep = aligner.score_reads_batch_prepare(alns, seeds, np.float64)
     cols = _port_cols(prep)
     assert cols.dtype == np.float64
@@ -199,7 +219,7 @@ def test_cpu_routes_to_plain():
     moved = {k: v - before[k]
              for k, v in mode_b_device.mode_b_elements_scored.items()}
     assert moved == {"cuda": 0, "cpu": 4, "host_f64": 0}
-    assert mode_b_cuda.launches == {"mode_b_cols": 0}
+    assert not any(mode_b_cuda.launches.values())
 
 
 def test_score_read_prefers_matching_allele():
