@@ -29,13 +29,17 @@ Phases, one line or more each:
    and 40 kb at cluster_shape's C beside the fastest other C of the full
    sweep recorded in PERF.md (the guard of cluster_shape's choice).  Mode
    B at bench.py's shape (512 pooled reads of a 35 bp | A x 18 | 35 bp
-   locus with -2/-1/+1 alternates): the artifact kernel's float32 tables
-   must equal the host's numpy tables (tolerance 0; the float64 entries
-   that differ before the cast are counted), there and on 12 random
-   repeat blocks; both row kernels (warp and block), reading those tables
-   in place, must equal the plain torch rows on the card (tolerance 0),
-   there, at the warp kernel's widest rows and one column more (1024,
-   1025) and on rows too wide for the block kernel's shared memory; the
+   locus with -2/-1/+1 alternates): both artifact kernels' float32 tables
+   (the routed warp kernel and the first design, variant="segment") must
+   equal the host's numpy tables (tolerance 0; the float64 entries that
+   differ before the cast are counted, and where the two kernels differ),
+   there and on 12 random repeat blocks; the two are timed in turns, each
+   call's device time read from torch.profiler beside the CUDA events;
+   both row kernels (warp and block),
+   reading those tables in place, must equal the plain torch rows on the
+   card (tolerance 0), there, at the warp kernel's widest rows and one
+   column more (1024, 1025) and on rows too wide for the block kernel's
+   shared memory; the
    marginalized LLs the host f64 path within 1e-4.  Times each kernel and
    its plain version at the main path's shapes, and mode-B pairs/s split
    into prepare, dispatch and marginalize.
@@ -54,8 +58,9 @@ Phases, one line or more each:
    take K1's warp variant and the VNTR run its block variant; a second
    VNTR run lowers the width thresholds so that the smem variant and K2's
    workspace kernel take its batches, a third so that K2's cluster kernel
-   takes them.  The mode-B runs take the artifact kernel and the warp row
-   kernel; a second mode-B dryrun sends its rows to the block kernel.  The
+   takes them.  The mode-B runs take the artifact warp kernel and the warp
+   row kernel; a second mode-B dryrun sends its tables to the segment
+   kernel and its rows to the block kernel.  The
    mode-B runs print the Haplotype build (where the reference builds its
    tables) and Mode B dispatch seconds of both runs.
 4. mesh    — a mesh of four shards on the one card (4 x cuda:0): the
@@ -108,6 +113,9 @@ PEAK_F32_OPS = 67e12     # float32 operations/s outside the tensor cores
 PEAK_F64_OPS = 34e12     # float64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12     # HBM3 bytes/s
 NATIVE_MAX_CELLS = 2e9   # phase 2 cases the native host scorer also checks
+# phase 3's runs that score mode B on the card
+MODE_B_RUNS = ("STR mode B", "dryrun mode-b+haploid",
+               "dryrun mode-b+haploid block")
 
 
 def fail(msg):
@@ -297,12 +305,12 @@ def bench_mode_b_locus(device):
     return aligner, [pools[i] for i in keep], [int(seeds[i]) for i in keep]
 
 
-def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label):
-    """The artifact kernel's float32 tables against the host numpy
-    code's at tolerance 0; returns (the kernel's float32 tables on the
-    card, float64 entries that differ before the cast, entries,
-    max |float64 difference|, the host's tables' seconds, max |float32
-    difference|)."""
+def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label, **kw):
+    """An artifact kernel's float32 tables (``kw``: the wrapper's variant)
+    against the host numpy code's at tolerance 0; returns (the kernel's
+    float32 tables on the card, float64 entries that differ before the
+    cast, entries, max |float64 difference|, the host's tables' seconds,
+    max |float32 difference|, the float64 tables)."""
     import numpy as np
     import torch
     from test_torch_cuda import ARTIFACT_KEYS
@@ -312,25 +320,58 @@ def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label):
     host = aligner.host_artifact_tables(dict(inp, P=P, n_d=n_d,
                                              dtype=np.float64))
     host_s = time.perf_counter() - t
-    got32 = mbc.mode_b_artifacts(*g, n_d=n_d)
-    got64 = mbc.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64)
+    name = f"mode_b_artifacts ({kw.get('variant', 'warp')})"
+    got32 = mbc.mode_b_artifacts(*g, n_d=n_d, **kw)
+    got64 = mbc.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64, **kw)
     torch.cuda.synchronize()
     c32, c64 = got32.cpu().numpy(), got64.cpu().numpy()
     if c32.shape != host.shape or not np.array_equal(c32,
                                                      host.astype(np.float32)):
         bad = np.argwhere(c32 != host.astype(np.float32))[:4].tolist()
-        fail(f"mode_b_artifacts disagrees with the host tables on {label}: "
+        fail(f"{name} disagrees with the host tables on {label}: "
              f"{int((c32 != host.astype(np.float32)).sum())} entries, first "
              f"{bad}")
     fin = np.isfinite(host)
     if not np.array_equal(fin, np.isfinite(c64)) \
             or not np.array_equal(c64[~fin], host[~fin]):
-        fail(f"mode_b_artifacts: non-finite entries differ on {label}")
+        fail(f"{name}: non-finite entries differ on {label}")
     err = float(np.abs(c64[fin] - host[fin]).max()) if fin.any() else 0.0
     err32 = float(np.abs(c32[fin].astype(np.float64)
                          - host[fin].astype(np.float32)).max()) \
         if fin.any() else 0.0
-    return got32, int((c64 != host).sum()), host.size, err, host_s, err32
+    return got32, int((c64 != host).sum()), host.size, err, host_s, err32, c64
+
+
+def profiled_us(fn, name, reps=20):
+    """Device microseconds a call of the kernels whose name holds `name`,
+    from torch.profiler's key_averages over `reps` calls of `fn`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += getattr(ev, "device_time_total", 0) or \
+                getattr(ev, "cuda_time_total", 0)
+            count += ev.count
+    if not count:
+        fail(f"torch.profiler recorded no {name} kernel")
+    return (total / count if total else None), count / reps
+
+
+def ms_or_none(us):
+    return None if us is None else us / 1e3
+
+
+def fmt_ms(ms):
+    return "not measured (no device time in the trace)" if ms is None \
+        else f"{ms:.5f} ms"
 
 
 def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
@@ -352,11 +393,18 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     prep = aligner.score_reads_batch_prepare(alns, seeds)
     prep_s = time.perf_counter() - t
     n_d, P = prep["n_d"], prep["P"]
-    # (a) the artifact tables: bench.py's shape, then the edges
-    A, n64, n_all, err64, host_s, art_err = artifacts_vs_host(
+    # (a) the artifact tables, both kernels: bench.py's shape, then the
+    # edges; the warp kernel's float64 values against the segment
+    # kernel's (the same operations in the same order)
+    Lp = prep["seg_codes"].shape[2]
+    plan = mbc.artifact_plan(Lp, n_d, P, len(prep["int_log"]), dev)
+    A, n64, n_all, err64, host_s, art_err, w64 = artifacts_vs_host(
         aligner, prep, P, n_d, dev, mbc, "bench.py's shape")
-    art_shape = (f"T={prep['tdesc'].shape[0]} P={P} n_d={n_d} "
-                 f"L={prep['seg_codes'].shape[2]}")
+    _A, s64, _n, _e, _s, seg_err, s64_tab = artifacts_vs_host(
+        aligner, prep, P, n_d, dev, mbc, "bench.py's shape",
+        variant="segment")
+    n_ws = int((w64 != s64_tab).sum())
+    art_shape = (f"T={prep['tdesc'].shape[0]} P={P} n_d={n_d} L={Lp}")
     e64 = e_all = 0
     e_err = 0.0
     for trial in range(12):
@@ -364,17 +412,27 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
             trial, lambda hap, params=None: ModeBAligner(hap, params,
                                                          device=dev))
         inp = al.artifact_inputs(tables, ss, L_max, nd)
-        _g, d64, d_all, d_err, _s, d_err32 = artifacts_vs_host(
-            al, inp, len(ss[0]), nd, dev, mbc, f"random block {trial}")
-        e64, e_all, e_err = e64 + d64, e_all + d_all, max(e_err, d_err)
-        art_err = max(art_err, d_err32)
-    say("kernels", f"mode_b_artifacts at bench.py's shape ({art_shape}) and "
-        "on 12 random blocks (homopolymers and not, deletions past the "
-        "block, empty and one-base segments, padding): float32 tables == "
-        "the host numpy tables (tolerance 0); float64 entries that differ "
-        f"before the cast: {n64} of {n_all} at bench.py's shape (max "
-        f"{err64:.3g}), {e64} of {e_all} on the random blocks (max "
-        f"{e_err:.3g})")
+        tabs = {}
+        for variant in ("warp", "segment"):
+            _g, d64, d_all, d_err, _s, d_err32, tabs[variant] = \
+                artifacts_vs_host(al, inp, len(ss[0]), nd, dev, mbc,
+                                  f"random block {trial}", variant=variant)
+            if variant == "warp":
+                e64, e_all = e64 + d64, e_all + d_all
+                e_err, art_err = max(e_err, d_err), max(art_err, d_err32)
+            else:
+                seg_err = max(seg_err, d_err32)
+        n_ws += int((tabs["warp"] != tabs["segment"]).sum())
+    say("kernels", f"mode_b_artifacts (warp kernel: {plan[0]} segments a "
+        f"block, region on chip {plan[1]}) and its "
+        f"segment variant at bench.py's shape ({art_shape}) and on 12 "
+        "random blocks (homopolymers and not, deletions past the block, "
+        "empty and one-base segments, padding): float32 tables == the host "
+        "numpy tables (tolerance 0), both kernels; float64 entries that "
+        f"differ before the cast (warp kernel): {n64} of {n_all} at "
+        f"bench.py's shape (max {err64:.3g}; segment kernel {s64}), {e64} "
+        f"of {e_all} on the random blocks (max {e_err:.3g}); float64 "
+        f"entries where the two kernels differ: {n_ws}")
     # (b) the row DP on the kernel's tables, read in place
     g = [A if k == "A_tab" else torch.from_numpy(prep[k]).to(dev)
          for k in TABLE_KEYS]
@@ -436,9 +494,36 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     if not np.allclose(lls[:64], host, rtol=1e-4, atol=1e-4):
         fail(f"mode-B LLs on the card differ from the host f64 path by "
              f"{ll_err}")
-    # (d) times and bounds
+    # (d) times and bounds: the two artifact kernels in turns (segment,
+    # warp, warp, segment), each call's device time from the profiler
+    # beside the CUDA events of a loop of wrapper calls, and the wrapper's
+    # host time a call
     ga = [torch.from_numpy(prep[k]).to(dev) for k in ARTIFACT_KEYS]
-    art_ms = dev_ms(lambda: mbc.mode_b_artifacts(*ga, n_d=n_d), 20)
+
+    def art_call(g_, nd_, **kw):
+        return lambda: mbc.mode_b_artifacts(*g_, n_d=nd_, **kw)
+
+    turns = {"segment": [], "warp": []}
+    for variant in ("segment", "warp", "warp", "segment"):
+        turns[variant].append(dev_ms(art_call(ga, n_d, variant=variant), 20))
+    art_ms = sum(turns["warp"]) / 2
+    seg_ms = sum(turns["segment"]) / 2
+    prof = {v: profiled_us(art_call(ga, n_d, variant=v),
+                           f"mode_b_artifacts_{v}_kernel")
+            for v in ("warp", "segment")}
+    prof_ms = {v: ms_or_none(p[0]) for v, p in prof.items()}
+
+    def host_us(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    wrap_us = host_us(art_call(ga, n_d))
     art_plain_ms = dev_ms(lambda: mode_b_artifacts_plain(*ga, n_d=n_d), 2)
     art_bytes = (sum(x.numel() * x.element_size() for x in ga)
                  + A.numel() * A.element_size())
@@ -467,12 +552,20 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
         f"rows on the card (bit-identical); widths 1024 (warp) and 1025 "
         "(block) == plain; rows of width 20000 (workspace) == plain; LLs "
         f"within {ll_err:.3g} of the host f64 path on 64 reads")
-    say("kernels", f"mode_b_artifacts on {smi} ({art_shape}): kernel "
-        f"{art_ms:.4f} ms, plain version on the card {art_plain_ms:.3f} ms "
-        f"(CUDA events), bound {art_bound[0]:.5f} ms ({art_bound[1]}; "
-        f"{art_bytes} bytes, {art_ops:.4g} float64 operations at "
-        f"{PEAK_F64_OPS / 1e12:g} TFLOP/s; {art_bound[0] / art_ms:.3%} of "
-        f"it); the host numpy tables {host_s:.3f} s (wall)")
+    say("kernels", f"mode_b_artifacts on {smi} ({art_shape}), in turns "
+        f"segment, warp, warp, segment (CUDA events, 20 calls): warp kernel "
+        f"{turns['warp'][0]:.5f} and {turns['warp'][1]:.5f} ms, segment "
+        f"kernel {turns['segment'][0]:.5f} and {turns['segment'][1]:.5f} ms "
+        f"({seg_ms / art_ms:.2f}x); device time a call (torch.profiler): "
+        f"warp {fmt_ms(prof_ms['warp'])}, segment "
+        f"{fmt_ms(prof_ms['segment'])} ({prof['warp'][1]:g} and "
+        f"{prof['segment'][1]:g} launches a call); the wrapper's host time "
+        f"{wrap_us / 1e3:.5f} ms a call; plain version on the card "
+        f"{art_plain_ms:.3f} ms; bound {art_bound[0]:.5f} ms ({art_bound[1]};"
+        f" {art_bytes} bytes, {art_ops:.4g} float64 operations at "
+        f"{PEAK_F64_OPS / 1e12:g} TFLOP/s): warp {art_bound[0] / art_ms:.3%}"
+        f" of it by events; segment {art_bound[0] / seg_ms:.3%}; the host "
+        f"numpy tables {host_s:.3f} s (wall)")
     say("kernels", f"mode_b_cols on {smi}: warp kernel "
         f"{ms['mode_b_cols']:.4f} ms, block kernel "
         f"{ms['mode_b_cols_block']:.4f} ms, plain rows {plain_ms:.3f} ms "
@@ -498,7 +591,13 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
             "mode_b_artifacts": {"ms": art_ms, "plain_ms": art_plain_ms,
                                  "bound_ms": art_bound[0],
                                  "bound_by": art_bound[1],
+                                 "profiler_ms": prof_ms["warp"],
                                  "max_abs_err": art_err, "shape": art_shape},
+            "mode_b_artifacts_segment": {
+                "ms": seg_ms, "plain_ms": art_plain_ms,
+                "bound_ms": art_bound[0], "bound_by": art_bound[1],
+                "profiler_ms": prof_ms["segment"],
+                "max_abs_err": seg_err, "shape": art_shape},
             "wide_shape": wide_shape}
 
 
@@ -1225,8 +1324,11 @@ def smoke(tmp, dev, smi):
     t_phase = time.perf_counter()
 
     # ---- 3. e2e ----------------------------------------------------------
+    import functools
+
     from longtr_tpu_torch import cli
     from longtr_tpu_torch.haplotype import poa
+    from longtr_tpu_torch.pipeline import mode_b as mode_b_pipeline
     from longtr_tpu_torch.testing.catalogs import build_catalog, dryrun_catalog
 
     def native_scorer(hap, hl, read, rl, fl, params):
@@ -1284,7 +1386,7 @@ def smoke(tmp, dev, smi):
     # (module, attribute, value)) so that the 1-2 kb batch takes the smem
     # variant and the 2-4 kb batch the workspace kernel, its third so that
     # both take K2's cluster kernel.  The second mode-B dryrun sends its
-    # rows to the block kernel.
+    # rows to the block kernel and its tables to the segment kernel.
     catalogs = [("STR", str_fx, [], {}, []),
                 ("VNTR", vntr_fx, ["--max-tr-len", "10000"], {}, []),
                 ("VNTR smem+streamed", vntr_fx, ["--max-tr-len", "10000"], {},
@@ -1300,7 +1402,10 @@ def smoke(tmp, dev, smi):
                  []),
                 ("dryrun mode-b+haploid block", dry,
                  ["--stutter-align-len", "25", "--haploid-chrs", "chrH"], {},
-                 [(mbc, "WARP_MAX_WIDTH", 0)]),
+                 [(mbc, "WARP_MAX_WIDTH", 0),
+                  (mode_b_pipeline, "mode_b_artifacts",
+                   functools.partial(mbc.mode_b_artifacts,
+                                     variant="segment"))]),
                 ("dryrun core device-posterior", dry, [],
                  {"LONGTR_DEVICE_POSTERIOR": "1"}, [])]
     say("e2e", f"catalogs built in {time.perf_counter() - t:.1f} s "
@@ -1378,7 +1483,7 @@ def smoke(tmp, dev, smi):
                                "mode_b_cols"],
                 "dryrun mode-b+haploid": ["pairhmm_resident_warp",
                                           "mode_b_artifacts", "mode_b_cols"],
-                "dryrun mode-b+haploid block": ["mode_b_artifacts",
+                "dryrun mode-b+haploid block": ["mode_b_artifacts_segment",
                                                 "mode_b_cols_block"]
                 }.get(tag, ["pairhmm_resident_warp"])
         for k in need:
@@ -1386,7 +1491,7 @@ def smoke(tmp, dev, smi):
                 fail(f"{tag}: {k} was not launched")
         if scored["cpu"] or scored["host_f64"] or not scored["cuda"]:
             fail(f"{tag}: pairs scored off the card: {scored}")
-        if mode_b_scored["cpu"] or ("mode_b_artifacts" in need
+        if mode_b_scored["cpu"] or (tag in MODE_B_RUNS
                                     and not mode_b_scored["cuda"]):
             fail(f"{tag}: mode-B elements scored off the card: "
                  f"{mode_b_scored}")
@@ -1439,25 +1544,30 @@ def smoke(tmp, dev, smi):
                 "library_ms": None,
                 "shape": shape}
                for k, (shape, run_tag, pallas) in main.items()]
-    # mode B's kernels: the warp row kernel and the artifact kernel in the
-    # mode-B STR run, the block row kernel in the rerouted mode-B dryrun
-    for name, run_tag, replaces in (
-            ("mode_b_artifacts", "STR mode B",
-             def_line("longtr_tpu/pipeline/mode_b.py",
-                      "_artifact_table_batch")),
-            ("mode_b_cols", "STR mode B",
-             def_line("longtr_tpu/ops/mode_b_device.py", "mode_b_cols")),
-            ("mode_b_cols_block", "dryrun mode-b+haploid block",
-             def_line("longtr_tpu/ops/mode_b_device.py", "mode_b_cols"))):
+    # mode B's kernels: the warp row kernel and the artifact warp kernel in
+    # the mode-B STR run, the block row kernel and the artifact segment
+    # kernel in the rerouted mode-B dryrun
+    h1 = def_line("longtr_tpu/pipeline/mode_b.py", "_artifact_table_batch")
+    j2 = def_line("longtr_tpu/ops/mode_b_device.py", "mode_b_cols")
+    h1_src = "longtr_tpu_torch/csrc/mode_b_artifacts.cu"
+    j2_src = "longtr_tpu_torch/csrc/mode_b.cu"
+    for name, run_tag, replaces, source in (
+            ("mode_b_artifacts", "STR mode B", h1, h1_src),
+            ("mode_b_artifacts_segment", "dryrun mode-b+haploid block", h1,
+             h1_src),
+            ("mode_b_cols", "STR mode B", j2, j2_src),
+            ("mode_b_cols_block", "dryrun mode-b+haploid block", j2,
+             j2_src)):
         k = mb[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "longtr_tpu_torch/csrc/mode_b.cu",
+        kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": counts[run_tag][0][name],
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": None,
-                        "shape": k["shape"]})
+                        "shape": k["shape"],
+                        **({"profiler_ms": k["profiler_ms"]}
+                           if "profiler_ms" in k else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

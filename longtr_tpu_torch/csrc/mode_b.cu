@@ -1,23 +1,6 @@
 // Mode B (the legacy stutter HMM of --stutter-align-len) for NVIDIA Hopper
-// (sm_90a): the artifact tables and the row DP that reads them.
-//
-// mode_b_artifacts_kernel builds the artifact tables A on the card.  The
-// JAX package builds them on the host in float64 numpy
-// (longtr_tpu/pipeline/mode_b.py::_artifact_table_batch over
-// StutterAligner.load_read_batch, align_all_batch and fast_lse_cols) and
-// copies them to the device with every batch; the plain version is
-// longtr_tpu_torch/ops/mode_b_artifacts.py::mode_b_artifacts_plain.  One
-// block a (table, read segment): its threads first sum the prefixes of
-// load_read_batch, one offset a thread, into shared memory (or a device
-// workspace when a segment is too wide), in float64 and in the host's
-// order; then one thread a column walks align_all_batch's descent for every
-// artifact size D, twice (the max of the entries, then their sum in entry
-// order with fast_lse's term dropping), and writes A[d, j] once.  The
-// input is the reads' bytes and a few descriptors; the output, 4 bytes a
-// (table, segment, D, column), bounds it: a 15 MB table at bench.py's
-// shape that no longer crosses the host.  Every operation is the host's
-// but exp and log, whose float64 results may differ from glibc's in the
-// last bit; the float32 tables the row DP reads almost never show that.
+// (sm_90a): the row DP that reads the artifact tables
+// (csrc/mode_b_artifacts.cu builds them on the card).
 //
 // The row DP, mode_b_cols, replaces longtr_tpu/ops/mode_b_device.py::
 // mode_b_cols, a jnp lax.scan over haplotype rows that XLA compiles into
@@ -448,190 +431,6 @@ mode_b_cols_warp_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
-// ---------------------------------------------------------------------------
-// The artifact tables.
-// ---------------------------------------------------------------------------
-
-// tdesc fields (longtr_tpu_torch/ops/mode_b_artifacts.py::DESC_FIELDS)
-enum { TD_SIDE, TD_BLEN, TD_PERIOD, TD_DFIRST, TD_NDL, TD_NDEL, TD_NINS,
-       TD_BLKOFF, TD_UPOFF, TD_N };
-
-// One reversed read segment: StutterAligner's _score at position r.
-struct Seg {
-  const uint8_t* code;
-  const uint8_t* qual;
-  const double* lw;
-  const double* lc;
-  __device__ __forceinline__ double at(int r, uint8_t c) const {
-    return code[r] == c ? lc[qual[r]] : lw[qual[r]];
-  }
-};
-
-// The entries of align_all_batch's descent for one column, in entry order:
-// lp, one a step while i > lim, and the tail at the exit (the scalar
-// StutterAligner._align_insertion / _align_deletion walk).
-template <class Visit>
-__device__ __forceinline__ void walk_entries(
-    const int D, const int offset, double lp, const int lim, const int blk_len,
-    const int period, const int32_t* __restrict__ up,
-    const uint8_t* __restrict__ blk, const Seg& sg,
-    const double* __restrict__ il, Visit& visit) {
-  visit(lp);
-  int i = 0;
-  while (i > lim) {
-    if (D > 0 && !(-i + period < blk_len)) {
-      visit(lp);
-      i -= 1;
-      continue;
-    }
-    const int um = up[blk_len - 1 + i];
-    if (um == 0) {
-      if (D > 0) {
-        for (int idx = i - period; idx >= i - D; idx -= period) {
-          const int r = offset - idx;
-          lp = lp - sg.at(r, blk[-i]);
-          lp = lp + sg.at(r, blk[-(i - period)]);
-        }
-      } else {
-        const int r = offset - i;
-        lp = lp - sg.at(r, blk[-(i + D)]);
-        lp = lp + sg.at(r, blk[-i]);
-      }
-      visit(lp);
-      i -= 1;
-    } else {
-      visit(il[um] + lp);
-      i = i - (um - 1) - 1;
-    }
-  }
-  const int t_base = D > 0 ? blk_len : blk_len + D;
-  if (i > -t_base) visit(il[t_base + i] + lp);
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(256)
-mode_b_artifacts_kernel(const uint8_t* __restrict__ seg_codes,
-                        const uint8_t* __restrict__ seg_quals,
-                        const int32_t* __restrict__ seg_len,
-                        const double* __restrict__ lw64,
-                        const double* __restrict__ lc64,
-                        const int32_t* __restrict__ tdesc,
-                        const uint8_t* __restrict__ blk_bytes,
-                        const int32_t* __restrict__ upstream,
-                        const double* __restrict__ priors,
-                        const double* __restrict__ il, int P, int Lp, int n_d,
-                        int pre_n, double impossible, double thresh, int blk0,
-                        double* __restrict__ ws, OutT* __restrict__ out) {
-  extern __shared__ double art_smem[];
-  const int g = blk0 + blockIdx.x;        // (table, segment) = t * P + p
-  const int t = g / P, p = g - t * P;
-  const int* dsc = tdesc + (size_t)t * TD_N;
-  const int side = dsc[TD_SIDE], blk_len = dsc[TD_BLEN],
-            period = dsc[TD_PERIOD], d_first = dsc[TD_DFIRST],
-            n_dl = dsc[TD_NDL], n_del = dsc[TD_NDEL], n_ins = dsc[TD_NINS];
-  const int nDc = max(n_del, 1), nIc = max(n_ins, 1);
-  if (1 + nDc + nIc > pre_n) __trap();    // the host sizes pre_n for this
-  const size_t sp = (size_t)side * P + p;
-  const Seg sg{seg_codes + sp * Lp, seg_quals + sp * Lp, lw64, lc64};
-  const int L = min(max(seg_len[sp], 0), Lp);
-  const uint8_t* blk = blk_bytes + dsc[TD_BLKOFF];
-  const int32_t* ups = upstream + dsc[TD_UPOFF];
-  double* pre = ws != nullptr ? ws + (size_t)blockIdx.x * pre_n * Lp
-                              : art_smem;
-  double* match = pre;
-  double* dels = pre + Lp;
-  double* ins = dels + (size_t)Lp * nDc;
-
-  // load_read_batch: the prefixes of every offset o, summed in j order
-  for (int o = threadIdx.x; o < L; o += blockDim.x) {
-    double run = 0.0;
-    int di = 0;
-    for (int j = 0; j < blk_len; j++) {
-      const bool in = o + j < L;
-      if (in) run = run + sg.at(o + j, blk[j]);
-      if ((j + 1) % period == 0 && j < period * n_del && di < nDc) {
-        dels[(size_t)o * nDc + di] = in ? run : 0.0;
-        di++;
-      }
-    }
-    match[o] = run;
-    double ri = 0.0;
-    int ii = 0;
-    for (int j = 0; j < period * n_ins; j++) {
-      if (o + j < L) {
-        const int jm = j % period;
-        ri = ri + (jm < blk_len ? sg.at(o + j, blk[jm])
-                                : lc64[sg.qual[o + j]]);
-      }
-      if ((j + 1) % period == 0) {
-        ins[(size_t)o * nIc + ii] = ri;
-        ii++;
-      }
-    }
-  }
-  __syncthreads();
-
-  OutT* ob = out + (size_t)blockIdx.x * n_d * Lp;
-  const double* pri = priors + (size_t)t * n_d;
-  for (int j = threadIdx.x; j < Lp; j += blockDim.x) {
-    const int offset = L - 1 - j;
-    for (int d = 0; d < n_d; d++) {
-      const int D = d_first + d * period;
-      double v;
-      if (j >= L || d >= n_dl) {
-        v = -INFINITY;                      // column or d padding
-      } else if (blk_len + D < 0) {
-        v = impossible;                     // base_len < 0
-      } else if (D == 0) {
-        v = pri[d] + match[offset];
-      } else {
-        const int base_len = min(blk_len + D, j + 1);
-        double lp;
-        int lim;
-        const int32_t* up;
-        if (D > 0) {
-          up = ups;
-          const double log_prior = -il[blk_len + 1];
-          lp = log_prior + ins[(size_t)offset * nIc + (D / period - 1)];
-          lp = lp + (base_len > D ? match[offset + D] : 0.0);
-          lim = -min(max(0, base_len - D), blk_len);
-        } else {
-          const int k = -D / period - 1;
-          up = ups + (size_t)k * blk_len;
-          const double log_prior = -il[blk_len + D + 1];
-          const int od = offset + D;
-          if (od < 0) {
-            lp = log_prior;
-            for (int q = 0; q < base_len; q++)
-              lp = lp + sg.at(offset + q, blk[q - D]);
-          } else {
-            lp = log_prior + (match[od] - dels[(size_t)od * nDc + k]);
-          }
-          lim = -base_len;
-        }
-        // fast_lse_cols: the max of the entries, then their sum in order
-        double m = -INFINITY;
-        auto vmax = [&](double e) { m = e > m ? e : m; };
-        walk_entries(D, offset, lp, lim, blk_len, period, up, blk, sg, il,
-                     vmax);
-        double lse = m;
-        if (isfinite(m)) {
-          double total = 0.0;
-          auto vsum = [&](double e) {
-            const double df = e - m;
-            if (df > thresh) total = total + exp(df);
-          };
-          walk_entries(D, offset, lp, lim, blk_len, period, up, blk, sg, il,
-                       vsum);
-          lse = m + log(total);
-        }
-        v = pri[d] + lse;
-      }
-      ob[(size_t)d * Lp + j] = (OutT)v;
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -639,11 +438,6 @@ extern "C" {
 // Dynamic shared memory of a block-kernel launch whose rows live on chip.
 long mode_b_smem_bytes(int L) {
   return (SCAN_SLOTS + 3L * L) * (long)sizeof(float);
-}
-
-// Dynamic shared memory of an artifact launch whose prefixes live on chip.
-long mode_b_artifacts_smem_bytes(int Lp, int pre_n) {
-  return (long)pre_n * Lp * (long)sizeof(double);
 }
 
 // Widest rows (columns) and most artifact sizes the warp kernel takes.
@@ -712,48 +506,6 @@ int mode_b_cols_warp(const uint8_t* codes, const uint8_t* quals,
   else if (need <= 24) MODE_B_WARP(24);
   else MODE_B_WARP(32);
 #undef MODE_B_WARP
-  return (int)cudaGetLastError();
-}
-
-// seg_codes, seg_quals (2, P, Lp) uint8; seg_len (2, P) int32; lw64, lc64
-// (256,) float64; tdesc (T, 9) int32; blk_bytes uint8; upstream int32;
-// priors (T, n_d) float64; il float64; out (nblk, n_d, Lp) float32 (out64
-// 0) or float64 (out64 1), the (table, segment)s blk0 .. blk0 + nblk - 1.
-// ws is null (prefixes in shared memory) or an (nblk, pre_n, Lp) float64
-// device workspace.
-int mode_b_artifacts(const uint8_t* seg_codes, const uint8_t* seg_quals,
-                     const int32_t* seg_len, const double* lw64,
-                     const double* lc64, const int32_t* tdesc,
-                     const uint8_t* blk_bytes, const int32_t* upstream,
-                     const double* priors, const double* il, int P, int Lp,
-                     int n_d, int pre_n, double impossible, double thresh,
-                     int blk0, int nblk, int threads, double* ws, int out64,
-                     void* out, void* stream) {
-  const long smem = ws != nullptr ? 0 : mode_b_artifacts_smem_bytes(Lp, pre_n);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (out64) {
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          mode_b_artifacts_kernel<double>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    mode_b_artifacts_kernel<double><<<nblk, threads, smem, st>>>(
-        seg_codes, seg_quals, seg_len, lw64, lc64, tdesc, blk_bytes, upstream,
-        priors, il, P, Lp, n_d, pre_n, impossible, thresh, blk0, ws,
-        (double*)out);
-  } else {
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          mode_b_artifacts_kernel<float>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    mode_b_artifacts_kernel<float><<<nblk, threads, smem, st>>>(
-        seg_codes, seg_quals, seg_len, lw64, lc64, tdesc, blk_bytes, upstream,
-        priors, il, P, Lp, n_d, pre_n, impossible, thresh, blk0, ws,
-        (float*)out);
-  }
   return (int)cudaGetLastError();
 }
 

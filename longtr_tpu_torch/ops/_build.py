@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` (the pair-HMM kernels, mode B's artifact tables and
-row DP) exposes a plain C interface, so ``nvcc`` compiles each into an
+Every ``csrc/*.cu`` (the pair-HMM kernels, mode B's artifact tables, mode
+B's row DP) exposes a plain C interface, so ``nvcc`` compiles each into an
 object, all at once, and links them into one shared library, bound with
 ``ctypes``: no torch headers, no ``ninja``.  The build runs at first use,
 into ``longtr_tpu_torch/_build/``, and is keyed by a hash of every source
@@ -111,6 +111,15 @@ def _bind(lib) -> None:
     lib.mode_b_artifacts.argtypes = ([p] * 10 + [i] * 4 + [d, d] + [i] * 3
                                      + [p, i, p, p])
     lib.mode_b_artifacts.restype = i
+    lib.mode_b_artifacts_max_segments.argtypes = []
+    lib.mode_b_artifacts_max_segments.restype = i
+    lib.mode_b_artifacts_warp_smem_bytes.argtypes = [i] * 5
+    lib.mode_b_artifacts_warp_smem_bytes.restype = ctypes.c_long
+    lib.mode_b_artifacts_warp_ws_doubles.argtypes = [i, i]
+    lib.mode_b_artifacts_warp_ws_doubles.restype = ctypes.c_long
+    lib.mode_b_artifacts_warp.argtypes = ([p] * 10 + [i] * 6 + [d, d] + [i] * 2
+                                          + [p, i, p, p])
+    lib.mode_b_artifacts_warp.restype = i
 
 
 def load_library():

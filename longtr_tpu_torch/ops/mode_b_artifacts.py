@@ -30,10 +30,10 @@ IMPOSSIBLE where ``block_len + D < 0``, -inf in d-padding and past a
 segment's end, in the requested dtype (computed in float64 and cast).
 
 Every operation runs in numpy's order, so on the CPU the tables equal the
-host's bit for bit.  The CUDA kernel
-(``csrc/mode_b.cu::mode_b_artifacts_kernel``) computes the same tables on
-a card; its float64 ``exp``/``log`` may differ from the host's in the last
-bit, which the float32 tables the row DP reads almost never show.
+host's bit for bit.  The CUDA kernels of ``csrc/mode_b_artifacts.cu``
+compute the same tables on a card; their float64 ``exp``/``log`` may differ
+from the host's in the last bit, which the float32 tables the row DP reads
+almost never show.
 """
 
 from __future__ import annotations

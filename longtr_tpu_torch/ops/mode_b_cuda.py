@@ -1,10 +1,16 @@
-"""Wrappers of the hand-written CUDA mode-B kernels (``csrc/mode_b.cu``).
+"""Wrappers of the hand-written CUDA mode-B kernels (``csrc/mode_b.cu``,
+``csrc/mode_b_artifacts.cu``).
 
-- :func:`mode_b_artifacts` builds the artifact tables on the card, one
-  block a (table, read segment); the plain version is
-  :func:`longtr_tpu_torch.ops.mode_b_artifacts.mode_b_artifacts_plain`.  A
-  segment's prefix sums live in shared memory, or, past about 1.9k columns
-  at 13 artifact sizes, in a device-memory workspace.
+- :func:`mode_b_artifacts` builds the artifact tables on the card; the
+  plain version is
+  :func:`longtr_tpu_torch.ops.mode_b_artifacts.mode_b_artifacts_plain`.
+  It takes the warp kernel: one block a table and up to 16 read segments
+  of its side, their bytes and prefix sums staged in shared memory (or,
+  one segment a block, in a device-memory workspace past about 1.7k
+  columns at 13 artifact sizes), and its threads over (artifact size,
+  valid column), so that a warp walks one shared descent.  The first
+  design, one block a (table, segment) and one thread a column
+  (``variant="segment"``), is reached only by asking for it.
 - :func:`mode_b_cols` runs the row DP, the port of
   :func:`longtr_tpu.ops.mode_b_device.mode_b_cols` (the jnp row scan), on
   the tables the artifact kernel wrote.  Rows up to
@@ -37,9 +43,12 @@ from longtr_tpu_torch.ops.mode_b_device import mode_b_cols_plain
 from longtr_tpu_torch.ops.pairhmm_cuda import (_ptr, _raise_on, _stream,
                                                max_smem_optin)
 
-# Kernel launches; chip_smoke.py zeroes and reads this.  "mode_b_cols" is
-# the warp kernel, "mode_b_cols_block" the block kernel.
-launches = {"mode_b_artifacts": 0, "mode_b_cols": 0, "mode_b_cols_block": 0}
+# Kernel launches; chip_smoke.py zeroes and reads this.
+# "mode_b_artifacts" is the artifact tables' warp kernel,
+# "mode_b_artifacts_segment" their first design; "mode_b_cols" is the row
+# DP's warp kernel, "mode_b_cols_block" its block kernel.
+launches = {"mode_b_artifacts": 0, "mode_b_artifacts_segment": 0,
+            "mode_b_cols": 0, "mode_b_cols_block": 0}
 
 # Widest rows the router sends to the warp kernel (at most its own limit,
 # mode_b_warp_max_width in csrc/mode_b.cu).  A test may lower it to send
@@ -52,6 +61,12 @@ WORKSPACE_BYTES = 1 << 30
 # Test hook: when set, launches whose shared-memory footprint exceeds this
 # many bytes run on the workspace even if they would fit on chip.
 smem_limit_bytes = None
+
+# Columns a block of the artifact warp kernel aims at (its 128 threads
+# take one each in the prefix phase, n_d each in the walks): it takes
+# ceil(ARTIFACT_BLOCK_COLUMNS / Lp) segments, at most 16.  A test may set it
+# to vary the segments a block.
+ARTIFACT_BLOCK_COLUMNS = 128
 
 # The plain versions' constants, passed to the kernels as they are.
 _IMPOSSIBLE = ctypes.c_float(float(np.float32(IMPOSSIBLE)))
@@ -91,7 +106,8 @@ def fits_on_chip(L: int, device) -> bool:
 
 
 def artifacts_smem_bytes(Lp: int, n_d: int) -> int:
-    """Shared memory of an artifact launch of segment width Lp on chip."""
+    """Shared memory of a segment-kernel artifact launch of segment width
+    Lp on chip."""
     return int(_build.load_library().mode_b_artifacts_smem_bytes(
         Lp, prefix_doubles(n_d)))
 
@@ -199,17 +215,28 @@ def mode_b_cols(codes, quals, lw_tab, lc_tab, prefix, last, hapchar, kind,
     return out
 
 
-def mode_b_artifacts(seg_codes, seg_quals, seg_len, lw64, lc64, tdesc,
-                     blk_bytes, upstream, priors, int_log, *, n_d,
-                     dtype=torch.float32):
-    """(T * P, n_d, Lp) artifact tables in ``dtype`` (float32, or float64
-    to see the card's values before the cast); the CUDA kernel.  Arguments
-    as :func:`~longtr_tpu_torch.ops.mode_b_artifacts.mode_b_artifacts_plain`.
-    """
-    args = (seg_codes, seg_quals, seg_len, lw64, lc64, tdesc, blk_bytes,
-            upstream, priors, int_log)
-    if seg_codes.device.type == "cpu":
-        return mode_b_artifacts_plain(*args, n_d=n_d, dtype=dtype)
+def artifact_plan(Lp: int, n_d: int, P: int, n_log: int, device):
+    """(segments a block, region on chip) of an artifact warp-kernel
+    launch over P segments of width Lp, with ``n_log`` int_log entries:
+    the segments that hold about :data:`ARTIFACT_BLOCK_COLUMNS` columns,
+    lowered until the block's region fits in shared memory; else one
+    segment a block on the workspace."""
+    if n_d * Lp >= 2 ** 31:
+        raise ValueError(f"n_d={n_d}, Lp={Lp}: the warp kernel indexes a "
+                         "segment's n_d * Lp outputs in 32 bits")
+    lib = _build.load_library()
+    G = min(-(-ARTIFACT_BLOCK_COLUMNS // Lp), P,
+            lib.mode_b_artifacts_max_segments(), (2 ** 31 - 1) // (n_d * Lp))
+    pre_n = prefix_doubles(n_d)
+    for g in range(max(G, 1), 0, -1):
+        if _fits(lib.mode_b_artifacts_warp_smem_bytes(Lp, n_d, pre_n, n_log,
+                                                      g), device):
+            return g, True
+    return 1, False
+
+
+def _check_artifacts(args, n_d, dtype):
+    seg_codes, tdesc = args[0], args[5]
     if seg_codes.dim() != 3 or seg_codes.shape[0] != 2 or tdesc.dim() != 2:
         raise ValueError("seg_codes and tdesc must be (2, P, Lp) and (T, 9)")
     _, P, Lp = seg_codes.shape
@@ -224,24 +251,64 @@ def mode_b_artifacts(seg_codes, seg_quals, seg_len, lw64, lc64, tdesc,
     if P < 1 or Lp < 1 or T < 1 or n_d < 1:
         raise ValueError(f"P={P}, Lp={Lp}, T={T}, n_d={n_d}: each must be "
                          ">= 1")
+    return P, Lp, T
+
+
+def mode_b_artifacts(seg_codes, seg_quals, seg_len, lw64, lc64, tdesc,
+                     blk_bytes, upstream, priors, int_log, *, n_d,
+                     dtype=torch.float32, variant: str | None = None):
+    """(T * P, n_d, Lp) artifact tables in ``dtype`` (float32, or float64
+    to see the card's values before the cast); the CUDA kernels.  Arguments
+    as :func:`~longtr_tpu_torch.ops.mode_b_artifacts.mode_b_artifacts_plain`.
+    ``variant`` "segment" takes the first design instead of the warp
+    kernel (see :func:`artifact_plan`).
+    """
+    args = (seg_codes, seg_quals, seg_len, lw64, lc64, tdesc, blk_bytes,
+            upstream, priors, int_log)
+    if seg_codes.device.type == "cpu":
+        return mode_b_artifacts_plain(*args, n_d=n_d, dtype=dtype)
+    P, Lp, T = _check_artifacts(args, n_d, dtype)
+    variant = variant or "warp"
+    if variant not in ("warp", "segment"):
+        raise ValueError(f"variant {variant!r}: warp or segment")
     dev = seg_codes.device
     out = torch.empty((T * P, n_d, Lp), dtype=dtype, device=dev)
     pre_n = prefix_doubles(n_d)
-    on_chip = _fits(artifacts_smem_bytes(Lp, n_d), dev)
-    nblk = T * P
-    step = nblk if on_chip else max(1, WORKSPACE_BYTES // (8 * pre_n * Lp))
-    ws = None if on_chip else torch.empty((min(nblk, step), pre_n, Lp),
-                                          dtype=f64, device=dev)
-    threads = min(256, max(32, -(-Lp // 32) * 32))
+    out64 = int(dtype == torch.float64)
     lib = _build.load_library()
+    consts = (float(IMPOSSIBLE), LOG_THRESH)
+    if variant == "segment":
+        on_chip = _fits(artifacts_smem_bytes(Lp, n_d), dev)
+        nblk = T * P
+        step = nblk if on_chip else max(1, WORKSPACE_BYTES // (8 * pre_n * Lp))
+        ws = None if on_chip else torch.empty((min(nblk, step), pre_n, Lp),
+                                              dtype=torch.float64, device=dev)
+        threads = min(256, max(32, -(-Lp // 32) * 32))
+        for lo in range(0, nblk, step):
+            hi = min(nblk, lo + step)
+            with torch.cuda.device(dev):
+                rc = lib.mode_b_artifacts(
+                    *[_ptr(x) for x in args], P, Lp, n_d, pre_n, *consts, lo,
+                    hi - lo, threads, None if ws is None else _ptr(ws), out64,
+                    _ptr(out[lo:hi]), _stream(dev))
+            _raise_on(rc, "mode_b_artifacts")
+            launches["mode_b_artifacts_segment"] += 1
+        return out
+    n_log = int_log.shape[0]
+    G, on_chip = artifact_plan(Lp, n_d, P, n_log, dev)
+    nblk = T * -(-P // G)
+    ws_doubles = lib.mode_b_artifacts_warp_ws_doubles(Lp, pre_n)
+    step = nblk if on_chip else max(1, WORKSPACE_BYTES // (8 * ws_doubles))
+    ws = None if on_chip else torch.empty((min(nblk, step), ws_doubles),
+                                          dtype=torch.float64, device=dev)
     for lo in range(0, nblk, step):
         hi = min(nblk, lo + step)
         with torch.cuda.device(dev):
-            rc = lib.mode_b_artifacts(
-                *[_ptr(x) for x in args], P, Lp, n_d, pre_n,
-                float(IMPOSSIBLE), LOG_THRESH, lo, hi - lo, threads,
-                None if ws is None else _ptr(ws), int(dtype == f64),
-                _ptr(out[lo:hi]), _stream(dev))
-        _raise_on(rc, "mode_b_artifacts")
+            rc = lib.mode_b_artifacts_warp(
+                *[_ptr(x) for x in args], P, Lp, n_d, pre_n, n_log, G,
+                *consts, lo, hi - lo,
+                None if ws is None else _ptr(ws), out64, _ptr(out),
+                _stream(dev))
+        _raise_on(rc, "mode_b_artifacts_warp")
         launches["mode_b_artifacts"] += 1
     return out

@@ -616,8 +616,9 @@ def test_mode_b_kernel_bit_identical(cuda_device, case, monkeypatch):
     monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
     outs.append(mode_b_cuda.mode_b_cols(*g, n_d=n_d, variant="block"))
     torch.cuda.synchronize()
-    assert mode_b_cuda.launches == {"mode_b_artifacts": 0, "mode_b_cols": 1,
-                                    "mode_b_cols_block": 3}
+    assert mode_b_cuda.launches == {"mode_b_artifacts": 0,
+                                    "mode_b_artifacts_segment": 0,
+                                    "mode_b_cols": 1, "mode_b_cols_block": 3}
     for out in outs:
         assert out.dtype == torch.float32 and out.shape == want.shape
         assert torch.equal(out, want), case
@@ -670,8 +671,9 @@ def test_mode_b_kernel_wider_than_shared_memory(cuda_device):
     got = mode_b_device.mode_b_cols(*g, n_d=prep["n_d"])
     want = mode_b_device.mode_b_cols_plain(*g, n_d=prep["n_d"])
     torch.cuda.synchronize()
-    assert mode_b_cuda.launches == {"mode_b_artifacts": 0, "mode_b_cols": 0,
-                                    "mode_b_cols_block": 1}
+    assert mode_b_cuda.launches == {"mode_b_artifacts": 0,
+                                    "mode_b_artifacts_segment": 0,
+                                    "mode_b_cols": 0, "mode_b_cols_block": 1}
     assert got.device == cuda_device and torch.equal(got, want)
 
 
@@ -701,22 +703,28 @@ def _artifact_inputs_on(inp, device):
             for k in ARTIFACT_KEYS]
 
 
-def _artifact_kernel_vs_host(aligner, inp, n_d, P, device):
-    """The artifact kernel's float32 tables against the host numpy
-    code's (tolerance 0) and its float64 values within rtol 1e-12 (a
-    last-bit exp/log difference); returns the float64 entries that
-    differ."""
+def _artifact_kernel_vs_host(aligner, inp, n_d, P, device, **kw):
+    """An artifact kernel's float32 tables (``kw``: the wrapper's variant)
+    against the host numpy code's (tolerance 0) and
+    its float64 values within rtol 1e-12 (a last-bit exp/log difference);
+    returns the float64 tables on the card."""
     g = _artifact_inputs_on(inp, device)
     host = aligner.host_artifact_tables(dict(inp, P=P, n_d=n_d,
                                              dtype=np.float64))
-    got32 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d)
-    got64 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64)
+    got32 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, **kw)
+    got64 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64,
+                                         **kw)
     torch.cuda.synchronize()
     assert got32.dtype == torch.float32 and got32.shape == host.shape
     np.testing.assert_array_equal(got32.cpu().numpy(),
                                   host.astype(np.float32))
     np.testing.assert_allclose(got64.cpu().numpy(), host, rtol=1e-12, atol=0)
-    return int((got64.cpu().numpy() != host).sum())
+    return got64.cpu().numpy()
+
+
+# the warp kernel's plans (ARTIFACT_BLOCK_COLUMNS): the route's, one
+# segment a block, four (a ragged last group of the six segments)
+WARP_PLANS = (None, 1, 300)
 
 
 @pytest.mark.gpu
@@ -724,17 +732,52 @@ def _artifact_kernel_vs_host(aligner, inp, n_d, P, device):
 def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
                                                monkeypatch):
     """Random repeat blocks (homopolymers and not, shorter than the
-    largest deletion), empty and one-base segments, padding: the kernel's
-    tables equal the host's, with the prefixes in shared memory and on the
+    largest deletion), empty and one-base segments, padding: the warp
+    kernel's tables equal the host's under each plan, with the region in
+    shared memory and on the workspace, and equal the segment kernel's
+    float64 values exactly (the same operations in the same order)."""
+    aligner, tables, ss, L_max, n_d = artifact_case(
+        trial, _card_aligner(cuda_device))
+    inp = aligner.artifact_inputs(tables, ss, L_max, n_d)
+    P = len(ss[0])
+    mode_b_cuda.reset_launches()
+    first = mode_b_cuda.mode_b_artifacts(
+        *_artifact_inputs_on(inp, cuda_device), n_d=n_d, dtype=torch.float64,
+        variant="segment").cpu().numpy()
+    for columns in WARP_PLANS:
+        if columns is not None:
+            monkeypatch.setattr(mode_b_cuda, "ARTIFACT_BLOCK_COLUMNS", columns)
+        got = _artifact_kernel_vs_host(aligner, inp, n_d, P, cuda_device)
+        np.testing.assert_array_equal(got, first)
+    monkeypatch.undo()
+    monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
+    assert mode_b_cuda.artifact_plan(L_max, n_d, P, len(inp["int_log"]),
+                                     cuda_device) == (1, False)
+    _artifact_kernel_vs_host(aligner, inp, n_d, P, cuda_device)
+    assert mode_b_cuda.launches == {
+        "mode_b_artifacts": 2 * len(WARP_PLANS) + 2,
+        "mode_b_artifacts_segment": 1, "mode_b_cols": 0,
+        "mode_b_cols_block": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trial", range(12))
+def test_mode_b_artifacts_segment_kernel_random_blocks(cuda_device, trial,
+                                                       monkeypatch):
+    """The first design (variant="segment") on the same blocks equals the
+    host's tables, with the prefixes in shared memory and on the
     workspace."""
     aligner, tables, ss, L_max, n_d = artifact_case(
         trial, _card_aligner(cuda_device))
     inp = aligner.artifact_inputs(tables, ss, L_max, n_d)
     mode_b_cuda.reset_launches()
-    _artifact_kernel_vs_host(aligner, inp, n_d, len(ss[0]), cuda_device)
+    _artifact_kernel_vs_host(aligner, inp, n_d, len(ss[0]), cuda_device,
+                             variant="segment")
     monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
-    _artifact_kernel_vs_host(aligner, inp, n_d, len(ss[0]), cuda_device)
-    assert mode_b_cuda.launches["mode_b_artifacts"] == 4
+    _artifact_kernel_vs_host(aligner, inp, n_d, len(ss[0]), cuda_device,
+                             variant="segment")
+    assert mode_b_cuda.launches["mode_b_artifacts_segment"] == 4
+    assert mode_b_cuda.launches["mode_b_artifacts"] == 0
 
 
 @pytest.mark.gpu
@@ -742,16 +785,24 @@ def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
 def test_mode_b_card_path_equals_host_tables(cuda_device, case):
     """The default path on the card (both kernels) gives the LLs of the
     reference path (host numpy tables, plain rows on the card) exactly,
-    and its tables equal the host's."""
+    and the tables of both artifact kernels equal the host's, with the
+    warp kernel's region in shared memory and on the workspace."""
     card, alns, seeds = mode_b_case(case, _card_aligner(cuda_device))
     ref, _a, _s = mode_b_case(case, _card_aligner(cuda_device, True))
     prep = card.score_reads_batch_prepare(alns, seeds)
     assert "A_tab" not in prep
-    _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"], cuda_device)
+    for variant in ("warp", "segment"):
+        _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"],
+                                 cuda_device, variant=variant)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mode_b_cuda, "smem_limit_bytes", 0)
+        _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"],
+                                 cuda_device)
     mode_b_cuda.reset_launches()
     got = card.score_reads_batch_finish(prep)
-    assert mode_b_cuda.launches == {"mode_b_artifacts": 1, "mode_b_cols": 1,
-                                    "mode_b_cols_block": 0}
+    assert mode_b_cuda.launches == {"mode_b_artifacts": 1,
+                                    "mode_b_artifacts_segment": 0,
+                                    "mode_b_cols": 1, "mode_b_cols_block": 0}
     want = ref.score_reads_batch(alns, seeds)
     assert sum(mode_b_cuda.launches.values()) == 2
     np.testing.assert_array_equal(got, want)
@@ -763,9 +814,34 @@ def test_mode_b_artifacts_refuses_what_it_cannot_take(cuda_device):
         0, _card_aligner(cuda_device))
     g = _artifact_inputs_on(aligner.artifact_inputs(tables, ss, L_max, n_d),
                             cuda_device)
-    with pytest.raises(ValueError, match="dtype"):
-        mode_b_cuda.mode_b_artifacts(*g[:3], g[3].float(), *g[4:], n_d=n_d)
-    with pytest.raises(ValueError, match="shape"):
-        mode_b_cuda.mode_b_artifacts(*g, n_d=n_d + 1)
-    with pytest.raises(ValueError, match="float32 or float64"):
-        mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float16)
+    mode_b_cuda.reset_launches()
+    for variant in ("warp", "segment"):
+        with pytest.raises(ValueError, match="dtype"):
+            mode_b_cuda.mode_b_artifacts(*g[:3], g[3].float(), *g[4:],
+                                         n_d=n_d, variant=variant)
+        with pytest.raises(ValueError, match="shape"):
+            mode_b_cuda.mode_b_artifacts(*g, n_d=n_d + 1, variant=variant)
+        with pytest.raises(ValueError, match="float32 or float64"):
+            mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float16,
+                                         variant=variant)
+    with pytest.raises(ValueError, match="warp or segment"):
+        mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, variant="block")
+    assert not any(mode_b_cuda.launches.values())
+
+
+@pytest.mark.gpu
+def test_mode_b_artifacts_warp_refuses_shapes_it_cannot_take(cuda_device,
+                                                             monkeypatch):
+    """A segment's n_d * Lp outputs must index in 32 bits; the plan takes
+    at most 16 segments a block, fewer where they do not fit, one on the
+    workspace where none fits."""
+    with pytest.raises(ValueError, match="32 bits"):
+        mode_b_cuda.artifact_plan(2 ** 31 // 13 + 1, 13, 8, 21, cuda_device)
+    assert mode_b_cuda.artifact_plan(72, 13, 512, 21, cuda_device) \
+        == (2, True)
+    assert mode_b_cuda.artifact_plan(20000, 13, 4, 21, cuda_device) \
+        == (1, False)
+    monkeypatch.setattr(mode_b_cuda, "ARTIFACT_BLOCK_COLUMNS", 10 ** 6)
+    G, on_chip = mode_b_cuda.artifact_plan(72, 13, 512, 21, cuda_device)
+    assert on_chip and G <= mode_b_cuda._build.load_library() \
+        .mode_b_artifacts_max_segments() == 16
