@@ -29,13 +29,12 @@ Phases, one line or more each:
    and 40 kb at cluster_shape's C beside the fastest other C of the full
    sweep recorded in PERF.md (the guard of cluster_shape's choice).  Mode
    B at bench.py's shape (512 pooled reads of a 35 bp | A x 18 | 35 bp
-   locus with -2/-1/+1 alternates): both artifact kernels' float32 tables
-   (the routed warp kernel and the first design, variant="segment") must
-   equal the host's numpy tables (tolerance 0; the float64 entries that
-   differ before the cast are counted, and where the two kernels differ),
-   there and on 12 random repeat blocks; the two are timed in turns, each
-   call's device time read from torch.profiler beside the CUDA events;
-   both row kernels (warp and block),
+   locus with -2/-1/+1 alternates): the artifact kernel's float32 tables
+   must equal the host's numpy tables (tolerance 0; the float64 entries
+   that differ before the cast are counted), there and on 12 random repeat
+   blocks; its and the warp row kernel's device time a call is read from
+   torch.profiler beside the CUDA events; both row kernels (warp and
+   block),
    reading those tables in place, must equal the plain torch rows on the
    card (tolerance 0), there, at the warp kernel's widest rows and one
    column more (1024, 1025) and on rows too wide for the block kernel's
@@ -59,24 +58,30 @@ Phases, one line or more each:
    VNTR run lowers the width thresholds so that the smem variant and K2's
    workspace kernel take its batches, a third so that K2's cluster kernel
    takes them.  The mode-B runs take the artifact warp kernel and the warp
-   row kernel; a second mode-B dryrun sends its tables to the segment
-   kernel and its rows to the block kernel.  The
+   row kernel; a second mode-B dryrun sends its rows to the block kernel.
+   The device-posterior run takes the window posteriors kernel.  The
    mode-B runs print the Haplotype build (where the reference builds its
    tables) and Mode B dispatch seconds of both runs.
 4. mesh    — a mesh of four shards on the one card (4 x cuda:0): the
    sharded pair-HMM at phase 2's 192 bp and 8 kb batches, through K1's
    variant for the width and through each of K2's two kernels, equals the
-   single-device kernels (tolerance 0) and launched once a shard; the
-   device EM train loop at a realistic locus (R = 2000 reads, A = 12
-   alleles, S = 3) equals the same call on CPU shards
-   (iterations, convergence, parameters within 1e-5), is timed against
-   the host EM, and its kernel launches an iteration are counted; the
-   window posteriors (J3) are timed at that locus, and the bounds of J3
-   and of one EM iteration (J4) are worked out from their tensors; the
-   five mesh surfaces of the dryrun catalog
+   single-device kernels (tolerance 0) and launched once a shard; the EM
+   train kernel (J4) at a realistic locus (R = 2000 reads, A = 12
+   alleles, S = 3), on a mesh of 1 and of 4 shards of the card, equals the
+   plain loop on CPU shards and on the card in iterations and convergence,
+   parameters and posterior probabilities within 1e-5 (its log-posterior
+   and total differences printed beside the plain loop's own on the card),
+   gives the same bits on a second launch, and launches exactly one kernel
+   a train (torch.profiler); it is timed against its plain loop, the host
+   EM and its bound; the window posteriors kernel (J3) at that locus meets
+   tests/test_posterior.py's tolerances against the plain version on the
+   card, gives the same bits on a second launch and on a 4-shard mesh of a
+   window of unequal loci, and is timed beside its plain version and its
+   bound; the five mesh surfaces of the dryrun catalog
    (core, snp-vcf, mode-b+haploid, ref-vcf, em-training) through the CLI
    with the mesh are byte-identical to the meshless runs on the card, with
-   the kernels (and, for em-training, the device EM) counted on the card
+   the kernels (the window posteriors on every surface and, for
+   em-training, one EM train launch a trained locus) counted on the card
    and no pair off it; `--workers 2` and a two-process `--distributed` run
    of the 512-STR catalog are byte-identical to phase 3's single run; and
    a `--jax-profile` run of the core surface writes a torch.profiler trace
@@ -113,6 +118,9 @@ PEAK_F32_OPS = 67e12     # float32 operations/s outside the tensor cores
 PEAK_F64_OPS = 34e12     # float64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12     # HBM3 bytes/s
 NATIVE_MAX_CELLS = 2e9   # phase 2 cases the native host scorer also checks
+# J4's log-posteriors against CPU shards: at most this many times the
+# plain loop on the card's share of the rtol 1e-6 / atol 1e-4 bound
+EM_LOGPOST_SLACK = 2.0
 # phase 3's runs that score mode B on the card
 MODE_B_RUNS = ("STR mode B", "dryrun mode-b+haploid",
                "dryrun mode-b+haploid block")
@@ -305,12 +313,11 @@ def bench_mode_b_locus(device):
     return aligner, [pools[i] for i in keep], [int(seeds[i]) for i in keep]
 
 
-def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label, **kw):
-    """An artifact kernel's float32 tables (``kw``: the wrapper's variant)
-    against the host numpy code's at tolerance 0; returns (the kernel's
-    float32 tables on the card, float64 entries that differ before the
-    cast, entries, max |float64 difference|, the host's tables' seconds,
-    max |float32 difference|, the float64 tables)."""
+def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label):
+    """The artifact kernel's float32 tables against the host numpy code's
+    at tolerance 0; returns (the kernel's float32 tables on the card,
+    float64 entries that differ before the cast, entries, max |float64
+    difference|, the host's tables' seconds, max |float32 difference|)."""
     import numpy as np
     import torch
     from test_torch_cuda import ARTIFACT_KEYS
@@ -320,9 +327,9 @@ def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label, **kw):
     host = aligner.host_artifact_tables(dict(inp, P=P, n_d=n_d,
                                              dtype=np.float64))
     host_s = time.perf_counter() - t
-    name = f"mode_b_artifacts ({kw.get('variant', 'warp')})"
-    got32 = mbc.mode_b_artifacts(*g, n_d=n_d, **kw)
-    got64 = mbc.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64, **kw)
+    name = "mode_b_artifacts"
+    got32 = mbc.mode_b_artifacts(*g, n_d=n_d)
+    got64 = mbc.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64)
     torch.cuda.synchronize()
     c32, c64 = got32.cpu().numpy(), got64.cpu().numpy()
     if c32.shape != host.shape or not np.array_equal(c32,
@@ -339,7 +346,7 @@ def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label, **kw):
     err32 = float(np.abs(c32[fin].astype(np.float64)
                          - host[fin].astype(np.float32)).max()) \
         if fin.any() else 0.0
-    return got32, int((c64 != host).sum()), host.size, err, host_s, err32, c64
+    return got32, int((c64 != host).sum()), host.size, err, host_s, err32
 
 
 def profiled_us(fn, name, reps=20):
@@ -393,17 +400,11 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     prep = aligner.score_reads_batch_prepare(alns, seeds)
     prep_s = time.perf_counter() - t
     n_d, P = prep["n_d"], prep["P"]
-    # (a) the artifact tables, both kernels: bench.py's shape, then the
-    # edges; the warp kernel's float64 values against the segment
-    # kernel's (the same operations in the same order)
+    # (a) the artifact tables: bench.py's shape, then the edges
     Lp = prep["seg_codes"].shape[2]
     plan = mbc.artifact_plan(Lp, n_d, P, len(prep["int_log"]), dev)
-    A, n64, n_all, err64, host_s, art_err, w64 = artifacts_vs_host(
+    A, n64, n_all, err64, host_s, art_err = artifacts_vs_host(
         aligner, prep, P, n_d, dev, mbc, "bench.py's shape")
-    _A, s64, _n, _e, _s, seg_err, s64_tab = artifacts_vs_host(
-        aligner, prep, P, n_d, dev, mbc, "bench.py's shape",
-        variant="segment")
-    n_ws = int((w64 != s64_tab).sum())
     art_shape = (f"T={prep['tdesc'].shape[0]} P={P} n_d={n_d} L={Lp}")
     e64 = e_all = 0
     e_err = 0.0
@@ -412,27 +413,18 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
             trial, lambda hap, params=None: ModeBAligner(hap, params,
                                                          device=dev))
         inp = al.artifact_inputs(tables, ss, L_max, nd)
-        tabs = {}
-        for variant in ("warp", "segment"):
-            _g, d64, d_all, d_err, _s, d_err32, tabs[variant] = \
-                artifacts_vs_host(al, inp, len(ss[0]), nd, dev, mbc,
-                                  f"random block {trial}", variant=variant)
-            if variant == "warp":
-                e64, e_all = e64 + d64, e_all + d_all
-                e_err, art_err = max(e_err, d_err), max(art_err, d_err32)
-            else:
-                seg_err = max(seg_err, d_err32)
-        n_ws += int((tabs["warp"] != tabs["segment"]).sum())
+        _g, d64, d_all, d_err, _s, d_err32 = artifacts_vs_host(
+            al, inp, len(ss[0]), nd, dev, mbc, f"random block {trial}")
+        e64, e_all = e64 + d64, e_all + d_all
+        e_err, art_err = max(e_err, d_err), max(art_err, d_err32)
     say("kernels", f"mode_b_artifacts (warp kernel: {plan[0]} segments a "
-        f"block, region on chip {plan[1]}) and its "
-        f"segment variant at bench.py's shape ({art_shape}) and on 12 "
-        "random blocks (homopolymers and not, deletions past the block, "
-        "empty and one-base segments, padding): float32 tables == the host "
-        "numpy tables (tolerance 0), both kernels; float64 entries that "
-        f"differ before the cast (warp kernel): {n64} of {n_all} at "
-        f"bench.py's shape (max {err64:.3g}; segment kernel {s64}), {e64} "
-        f"of {e_all} on the random blocks (max {e_err:.3g}); float64 "
-        f"entries where the two kernels differ: {n_ws}")
+        f"block, region on chip {plan[1]}) at bench.py's shape "
+        f"({art_shape}) and on 12 random blocks (homopolymers and not, "
+        "deletions past the block, empty and one-base segments, padding): "
+        "float32 tables == the host numpy tables (tolerance 0); float64 "
+        f"entries that differ before the cast: {n64} of {n_all} at "
+        f"bench.py's shape (max {err64:.3g}), {e64} of {e_all} on the "
+        f"random blocks (max {e_err:.3g})")
     # (b) the row DP on the kernel's tables, read in place
     g = [A if k == "A_tab" else torch.from_numpy(prep[k]).to(dev)
          for k in TABLE_KEYS]
@@ -494,24 +486,16 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     if not np.allclose(lls[:64], host, rtol=1e-4, atol=1e-4):
         fail(f"mode-B LLs on the card differ from the host f64 path by "
              f"{ll_err}")
-    # (d) times and bounds: the two artifact kernels in turns (segment,
-    # warp, warp, segment), each call's device time from the profiler
-    # beside the CUDA events of a loop of wrapper calls, and the wrapper's
-    # host time a call
+    # (d) times and bounds: each kernel's device time a call from the
+    # profiler beside the CUDA events of a loop of wrapper calls, and the
+    # artifact wrapper's host time a call
     ga = [torch.from_numpy(prep[k]).to(dev) for k in ARTIFACT_KEYS]
 
-    def art_call(g_, nd_, **kw):
-        return lambda: mbc.mode_b_artifacts(*g_, n_d=nd_, **kw)
+    def art_call():
+        return mbc.mode_b_artifacts(*ga, n_d=n_d)
 
-    turns = {"segment": [], "warp": []}
-    for variant in ("segment", "warp", "warp", "segment"):
-        turns[variant].append(dev_ms(art_call(ga, n_d, variant=variant), 20))
-    art_ms = sum(turns["warp"]) / 2
-    seg_ms = sum(turns["segment"]) / 2
-    prof = {v: profiled_us(art_call(ga, n_d, variant=v),
-                           f"mode_b_artifacts_{v}_kernel")
-            for v in ("warp", "segment")}
-    prof_ms = {v: ms_or_none(p[0]) for v, p in prof.items()}
+    art_ms = dev_ms(art_call, 20)
+    art_prof = profiled_us(art_call, "mode_b_artifacts_warp_kernel")
 
     def host_us(fn, reps=50):
         fn()
@@ -523,7 +507,7 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
         torch.cuda.synchronize()
         return dt / reps * 1e6
 
-    wrap_us = host_us(art_call(ga, n_d))
+    wrap_us = host_us(art_call)
     art_plain_ms = dev_ms(lambda: mode_b_artifacts_plain(*ga, n_d=n_d), 2)
     art_bytes = (sum(x.numel() * x.element_size() for x in ga)
                  + A.numel() * A.element_size())
@@ -533,6 +517,8 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     ms = {"mode_b_cols": dev_ms(lambda: mbc.mode_b_cols(*g, n_d=n_d), 20),
           "mode_b_cols_block": dev_ms(lambda: mbc.mode_b_cols(
               *g, n_d=n_d, variant="block"), 20)}
+    cols_prof = profiled_us(lambda: mbc.mode_b_cols(*g, n_d=n_d),
+                            "mode_b_cols_warp_kernel")
     plain_ms = dev_ms(lambda: mbd.mode_b_cols_plain(*g, n_d=n_d), 3)
     bound_ms, bound_by = mode_b_bound(g, n_d)
     # pairs/s as bench.py:234 defines it: (prepare + finish) per rep
@@ -552,25 +538,23 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
         f"rows on the card (bit-identical); widths 1024 (warp) and 1025 "
         "(block) == plain; rows of width 20000 (workspace) == plain; LLs "
         f"within {ll_err:.3g} of the host f64 path on 64 reads")
-    say("kernels", f"mode_b_artifacts on {smi} ({art_shape}), in turns "
-        f"segment, warp, warp, segment (CUDA events, 20 calls): warp kernel "
-        f"{turns['warp'][0]:.5f} and {turns['warp'][1]:.5f} ms, segment "
-        f"kernel {turns['segment'][0]:.5f} and {turns['segment'][1]:.5f} ms "
-        f"({seg_ms / art_ms:.2f}x); device time a call (torch.profiler): "
-        f"warp {fmt_ms(prof_ms['warp'])}, segment "
-        f"{fmt_ms(prof_ms['segment'])} ({prof['warp'][1]:g} and "
-        f"{prof['segment'][1]:g} launches a call); the wrapper's host time "
-        f"{wrap_us / 1e3:.5f} ms a call; plain version on the card "
-        f"{art_plain_ms:.3f} ms; bound {art_bound[0]:.5f} ms ({art_bound[1]};"
-        f" {art_bytes} bytes, {art_ops:.4g} float64 operations at "
-        f"{PEAK_F64_OPS / 1e12:g} TFLOP/s): warp {art_bound[0] / art_ms:.3%}"
-        f" of it by events; segment {art_bound[0] / seg_ms:.3%}; the host "
+    art_prof_ms = ms_or_none(art_prof[0])
+    cols_prof_ms = ms_or_none(cols_prof[0])
+    say("kernels", f"mode_b_artifacts on {smi} ({art_shape}): "
+        f"{art_ms:.5f} ms a call (CUDA events, 20 calls), device time a "
+        f"call {fmt_ms(art_prof_ms)} (torch.profiler, {art_prof[1]:g} "
+        f"launches a call); the wrapper's host time {wrap_us / 1e3:.5f} ms "
+        f"a call; plain version on the card {art_plain_ms:.3f} ms; bound "
+        f"{art_bound[0]:.5f} ms ({art_bound[1]}; {art_bytes} bytes, "
+        f"{art_ops:.4g} float64 operations at {PEAK_F64_OPS / 1e12:g} "
+        f"TFLOP/s): {art_bound[0] / art_ms:.3%} of it by events; the host "
         f"numpy tables {host_s:.3f} s (wall)")
     say("kernels", f"mode_b_cols on {smi}: warp kernel "
-        f"{ms['mode_b_cols']:.4f} ms, block kernel "
-        f"{ms['mode_b_cols_block']:.4f} ms, plain rows {plain_ms:.3f} ms "
-        f"(CUDA events), bound {bound_ms:.5f} ms ({bound_by}; warp "
-        f"{bound_ms / ms['mode_b_cols']:.3%}, block "
+        f"{ms['mode_b_cols']:.4f} ms (CUDA events), device time a call "
+        f"{fmt_ms(cols_prof_ms)} (torch.profiler, {cols_prof[1]:g} launches "
+        f"a call), block kernel {ms['mode_b_cols_block']:.4f} ms, plain "
+        f"rows {plain_ms:.3f} ms (CUDA events), bound {bound_ms:.5f} ms "
+        f"({bound_by}; warp {bound_ms / ms['mode_b_cols']:.3%}, block "
         f"{bound_ms / ms['mode_b_cols_block']:.3%} of it); host f64 "
         f"score_read {host_ll_s:.3f} s for all {len(alns)} reads (wall, "
         f"timed on 64); first prepare {prep_s:.3f} s")
@@ -584,6 +568,7 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     entry = {"plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "shape": shape}
     return {"mode_b_cols": dict(entry, ms=ms["mode_b_cols"],
+                                profiler_ms=cols_prof_ms,
                                 max_abs_err=max_err["mode_b_cols"]),
             "mode_b_cols_block": dict(entry, ms=ms["mode_b_cols_block"],
                                       max_abs_err=max_err[
@@ -591,13 +576,8 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
             "mode_b_artifacts": {"ms": art_ms, "plain_ms": art_plain_ms,
                                  "bound_ms": art_bound[0],
                                  "bound_by": art_bound[1],
-                                 "profiler_ms": prof_ms["warp"],
+                                 "profiler_ms": art_prof_ms,
                                  "max_abs_err": art_err, "shape": art_shape},
-            "mode_b_artifacts_segment": {
-                "ms": seg_ms, "plain_ms": art_plain_ms,
-                "bound_ms": art_bound[0], "bound_by": art_bound[1],
-                "profiler_ms": prof_ms["segment"],
-                "max_abs_err": seg_err, "shape": art_shape},
             "wide_shape": wide_shape}
 
 
@@ -619,56 +599,68 @@ def realistic_em_locus():
                                       names)
 
 
-def posterior_and_em_bounds(dev, smi, em, iter_s, launches_per_iter):
-    """The bounds of the two plain-torch device programs at the realistic
-    EM locus (R reads, A alleles, S samples), and the card time of the
-    window posteriors there (one locus a window).
+def posterior_and_em_bounds(R, A, S, n_iter):
+    """The bounds of the two device programs at a locus of R reads, A
+    alleles and S samples: J3's (ms, what bounds it, bytes) for one
+    locus, J4's for a train of n_iter iterations.
 
-    J3, ``calc_log_sample_posteriors``: reads the (R, A) log-likelihoods,
-    the two (R,) phase weights, the (R,) int64 labels and read mask and
-    the (A, A) prior, writes the (S, A, A) posteriors and (S,) totals; 6
-    operations a (read, allele, allele) term (two adds, a logaddexp of
-    three and the sum by sample).  J4, one iteration of the EM train loop:
-    reads the six (R, A) diff tables (int32 rep, eff and cat, bool
-    in_frame, float32 w_in and w_out) and the (R,) weights, labels and
-    mask; 21 operations a (read, allele, allele) term over its two E-step
-    halves (the first as J3, the second a logaddexp and two logsumexps of
-    the phase terms) and 12 a (read, allele) term for the PMF."""
+    J3, the window posteriors: reads the (R, A) log-likelihoods, the two
+    (R,) phase weights, the (R,) int64 labels and read mask and the (A, A)
+    prior, writes the (S, A, A) posteriors and (S,) totals; 6 operations a
+    (read, allele, allele) term (two adds, a logaddexp of three and the sum
+    by sample).  J4, the EM train loop: reads the six (R, A) diff tables
+    (int32 rep, eff and cat, bool in_frame, float32 w_in and w_out), the
+    (R,) weights, labels and mask and the (A,) initial priors once (0.5 MB
+    at R=2000 stays on chip between iterations), writes the packed result
+    (8 + S + S * A * A floats) once; 21 operations a (read, allele,
+    allele) term over its two E-step halves (the first as J3, the second a
+    logaddexp and two logsumexps of the phase terms) and 12 a (read,
+    allele) term for the PMF, each iteration."""
+    j3_bytes = (R * A * 4 + R * (4 + 4 + 8 + 1) + A * A * 4
+                + S * (A * A + 1) * 4)
+    j4_bytes = (R * A * (4 + 4 + 4 + 1 + 4 + 4) + R * (4 + 4 + 8 + 1)
+                + A * 4 + (8 + S + S * A * A) * 4)
+    j4_ops = n_iter * (21.0 * R * A * A + 12.0 * R * A)
+    return ((*bound(6.0 * R * A * A, j3_bytes), j3_bytes),
+            (*bound(j4_ops, j4_bytes), j4_bytes))
+
+
+def em_errors(got, want):
+    """(parameters, posterior probabilities, log-posteriors, the
+    log-posteriors' largest share of rtol 1e-6 / atol 1e-4, totals) max
+    absolute differences between two trains."""
     import numpy as np
+    lg = np.abs(got[3] - want[3])
+    fin = np.isfinite(lg)
+    return (float(np.abs(got[1] - want[1]).max()),
+            float(np.abs(np.exp(got[3]) - np.exp(want[3])).max()),
+            float(lg[fin].max()),
+            float((lg[fin] / (1e-4 + 1e-6 * np.abs(want[3][fin]))).max()),
+            float(np.abs(got[4] - want[4]).max()))
+
+
+def profiled_kernels(fn, tries=3):
+    """(fn's result, the CUDA kernel events of one call of fn, copies and
+    fills left out) from torch.profiler.  fn copies its inputs to the card,
+    so a trace without a single device event is one the profiler lost (seen
+    late in a long process): such a call is profiled again, at most
+    `tries` times, and the retries are printed."""
     import torch
-    from longtr_tpu_torch.ops.posterior import calc_log_sample_posteriors
-    R, A, S = len(em.sample_label), em.num_alleles, em.num_samples
-    j3_bytes = R * A * 4 + R * (4 + 4 + 8 + 1) + A * A * 4 + S * (A * A + 1) * 4
-    j3_ms, j3_by = bound(6.0 * R * A * A, j3_bytes)
-    j4_bytes = R * A * (4 + 4 + 4 + 1 + 4 + 4) + R * (4 + 4 + 8 + 1)
-    j4_ms, j4_by = bound(21.0 * R * A * A + 12.0 * R * A, j4_bytes)
-    rng = np.random.default_rng(11)
-    g = [torch.from_numpy(x).to(dev) for x in (
-        rng.normal(-6.0, 3.0, (R, A)).astype(np.float32),
-        np.log(rng.uniform(0.05, 0.95, R)).astype(np.float32),
-        np.log(rng.uniform(0.05, 0.95, R)).astype(np.float32),
-        np.asarray(em.sample_label, np.int64))]
-    prior = torch.zeros((A, A), dtype=torch.float32, device=dev)
-    mask = torch.ones(R, dtype=torch.bool, device=dev)
-    calc_log_sample_posteriors(*g, S, prior, read_mask=mask)
-    torch.cuda.synchronize()
-    reps = 20
-    s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in "se")
-    s_ev.record()
-    for _ in range(reps):
-        calc_log_sample_posteriors(*g, S, prior, read_mask=mask)
-    e_ev.record()
-    torch.cuda.synchronize()
-    j3_card = s_ev.elapsed_time(e_ev) / reps
-    say("mesh", f"J3 window posteriors at R={R} A={A} S={S} (one locus) on "
-        f"{smi}: {j3_card:.4f} ms on the card (CUDA events), bound "
-        f"{j3_ms * 1e3:.4f} us ({j3_by}; {j3_bytes} bytes), "
-        f"{j3_ms / j3_card:.3%} of it")
-    say("mesh", f"J4 EM train loop at R={R} A={A} S={S}: "
-        f"{iter_s * 1e3:.3f} ms an iteration on one shard (wall), "
-        f"{launches_per_iter:.1f} kernel launches an iteration, bound "
-        f"{j4_ms * 1e3:.4f} us an iteration ({j4_by}; {j4_bytes} bytes), "
-        f"{j4_ms / (iter_s * 1e3):.4%} of it")
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            if attempt > 1:
+                say("mesh", f"torch.profiler recorded no device event in "
+                    f"{attempt - 1} trace(s) before this one")
+            return out, [e for e in on_card if not e.name.startswith(
+                ("Memcpy", "Memset"))]
+    fail(f"torch.profiler recorded no device event in {tries} traces")
 
 
 def run_cli_processes(argvs, timeout):
@@ -695,15 +687,231 @@ def run_cli_processes(argvs, timeout):
             for pr, (_o, err) in zip(procs, outs)]
 
 
+def em_kernel_phase(dev, smi, mesh):
+    """Phase 4's kernel checks: the EM train (J4), one launch of
+    em_train_kernel a train on a mesh of 1 and of 4 shards of the card,
+    against the plain loop on CPU shards and on the card, its launches
+    counted by torch.profiler; then the window posteriors (J3) against the
+    plain version on the card and across mesh sizes.  Returns both
+    kernels' numbers for the kernels line."""
+    import numpy as np
+    import torch
+    from longtr_tpu_torch.config import Config
+    from longtr_tpu_torch.parallel import mesh as pm
+    from longtr_tpu_torch.ops import em_cuda
+    from longtr_tpu_torch.ops import posterior as post
+    from _torch_cases import (assert_posteriors_close, plain_em_train,
+                              posterior_window)
+
+    def ev_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        s_ev.record()
+        for _ in range(reps):
+            fn()
+        e_ev.record()
+        torch.cuda.synchronize()
+        return s_ev.elapsed_time(e_ev) / reps
+
+    cfg = Config()
+    conv = (cfg.max_em_iter, cfg.abs_ll_converge, cfg.frac_ll_converge)
+    locus = realistic_em_locus()
+    em = locus()
+    R, A, S = len(em.sample_label), em.num_alleles, em.num_samples
+    if (A, R, S) != (12, 2000, 3):
+        fail(f"EM locus has A={A}, R={R}, S={S}")
+    tables = em.mesh_inputs()
+    args = (*tables, *conv)
+    em_err = 0.0
+    for n in (1, 4):
+        card_mesh = pm.Mesh([dev] * n)
+        em_cuda.reset_launches()
+        on_card = pm.em_train_sharded(card_mesh, *args)
+        again = pm.em_train_sharded(card_mesh, *args)
+        if em_cuda.launches != {"window_posteriors": 0, "em_train": 2}:
+            fail(f"device EM on {n} shard(s): launches {em_cuda.launches}")
+        if (on_card[0], on_card[2]) != (again[0], again[2]) or not all(
+                np.array_equal(a, b) for a, b in zip(on_card[1:], again[1:])):
+            fail(f"device EM on {n} shard(s): two launches differ")
+        on_cpu = pm.em_train_sharded(pm.Mesh(["cpu"] * n), *args)
+        plain_card = plain_em_train(card_mesh, tables, *conv)
+        for ref_name, ref in (("CPU shards", on_cpu),
+                              ("the plain loop on the card", plain_card)):
+            e = em_errors(on_card, ref)
+            if (on_card[0], on_card[2]) != (ref[0], ref[2]) \
+                    or e[0] > 1e-5 or e[1] > 1e-5:
+                fail(f"device EM on {n} shard(s) vs {ref_name}: (converged, "
+                     f"n_iter) {on_card[0], on_card[2]} vs {ref[0], ref[2]}, "
+                     f"params {e[0]}, posterior probabilities {e[1]}")
+        e_cpu = em_errors(on_card, on_cpu)
+        e_plain = em_errors(plain_card, on_cpu)
+        e_kp = em_errors(on_card, plain_card)
+        # Log-posteriors near -5000 sum in float32, where one step is
+        # 4.9e-4: a second order of the same sums (the plain loop on the
+        # card) may itself miss the rtol 1e-6 / atol 1e-4 bound against CPU
+        # shards.  The kernel may miss it by at most EM_LOGPOST_SLACK times
+        # as much as that second order does, and by no more than the bound
+        # where the second order meets it.
+        limit = EM_LOGPOST_SLACK * max(1.0, e_plain[3])
+        if e_cpu[3] > limit:
+            fail(f"device EM on {n} shard(s) vs CPU shards: log-posteriors "
+                 f"{e_cpu[3]:.3g} x the rtol 1e-6 / atol 1e-4 bound, more "
+                 f"than {limit:.3g} ({EM_LOGPOST_SLACK} x max(1, "
+                 f"{e_plain[3]:.3g}), the plain loop on the card's)")
+        em_err = max(em_err, e_kp[2])
+        say("mesh", f"em_train_sharded at R=2000 A=12 S=3 on {n} shard(s) "
+            "of the card: one em_train_kernel launch a train, two launches "
+            f"bit-identical; (converged, n_iter) = ({on_card[0]}, "
+            f"{on_card[2]}) as on CPU shards and the plain loop on the card; "
+            f"against CPU shards parameters within {e_cpu[0]:.3g}, posterior "
+            f"probabilities within {e_cpu[1]:.3g}, log-posteriors within "
+            f"{e_cpu[2]:.4g} ({e_cpu[3]:.3g} x the rtol 1e-6 / atol 1e-4 "
+            f"bound), totals within {e_cpu[4]:.4g}; the plain loop on the "
+            f"card against CPU shards: log-posteriors {e_plain[2]:.4g} "
+            f"({e_plain[3]:.3g} x; the kernel's limit {limit:.3g} x), totals "
+            f"{e_plain[4]:.4g}; the kernel "
+            f"against the plain loop on the card: parameters "
+            f"{e_kp[0]:.3g}, log-posteriors {e_kp[2]:.4g}, totals "
+            f"{e_kp[4]:.4g}")
+
+    # the launches of one train, counted by the profiler
+    one, kern = profiled_kernels(
+        lambda: pm.em_train_sharded(pm.Mesh([dev]), *args))
+    if len(kern) != 1 or "em_train_kernel" not in kern[0].name:
+        fail(f"one device train launched {[e.name for e in kern]}")
+    plain_one, plain_kern = profiled_kernels(
+        lambda: plain_em_train(pm.Mesh([dev]), tables, *conv))
+    n_plain = len(plain_kern)
+    say("mesh", f"em_train_sharded on 1 shard of the card: 1 CUDA kernel "
+        f"launch for {one[2]} iterations (torch.profiler: {kern[0].name}); "
+        f"the plain loop on the card: {n_plain} kernel launches for "
+        f"{plain_one[2]} iterations, {n_plain / plain_one[2]:.1f} an "
+        "iteration")
+
+    # times: the kernel on device-resident tables (CUDA events and the
+    # profiler's device time), the plain loop on the card, the host EM and
+    # em_train_sharded's wall (copies in, the launch, the one read back)
+    g4 = [torch.from_numpy(x).to(dev) for x in (
+        *pm.em_tables(*tables[:9], 1), np.asarray(tables[9], np.float32))]
+
+    def em_call():
+        return em_cuda.em_train(*g4, n_shards=1, num_samples=S,
+                                haploid=False, max_iter=conv[0],
+                                min_abs=conv[1], min_frac=conv[2])
+
+    j4_ms = ev_ms(em_call, 10)
+    j4_prof = profiled_us(em_call, "em_train_kernel", reps=10)
+    j4_plain_ms = ev_ms(
+        lambda: plain_em_train(pm.Mesh([dev]), tables, *conv), 3)
+
+    def train_s(mesh_):
+        times = []
+        for _ in range(3):
+            e = locus()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if not e.train(*conv, mesh=mesh_):
+                fail("EM on the realistic locus did not converge")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return sorted(times)[1]
+
+    t_host = train_s(None)
+    t_card4 = train_s(mesh)
+    t_card1 = train_s(pm.Mesh([dev]))
+    t_host2 = train_s(None)
+    (j3_bound, j3_by, j3_bytes), (j4_bound, j4_by, j4_bytes) = \
+        posterior_and_em_bounds(R, A, S, one[2])
+    say("mesh", f"EM train at R=2000 A=12 S=3 on {smi}, {one[2]} "
+        f"iterations: em_train_kernel {j4_ms:.4f} ms a train (CUDA events, "
+        "device-resident tables), device time "
+        f"{fmt_ms(ms_or_none(j4_prof[0]))}"
+        f" (torch.profiler); the plain loop on the card {j4_plain_ms:.3f} ms; "
+        f"bound {j4_bound * 1e3:.4f} us a train ({j4_by}; {j4_bytes} bytes "
+        f"a train), {j4_bound / j4_ms:.4%} of it; wall, median of 3: "
+        f"host EMStutterGenotyper.train() {t_host * 1e3:.2f} ms and "
+        f"{t_host2 * 1e3:.2f} ms (before and after), em_train_sharded on 4 "
+        f"shards of the card {t_card4 * 1e3:.3f} ms, on 1 shard "
+        f"{t_card1 * 1e3:.3f} ms")
+
+    # J3 at the realistic locus (one locus a window) against the plain
+    # version on the card; a window of unequal loci on 1 and 4 shards
+    rng = np.random.default_rng(11)
+    window1 = [dict(log_aln_probs=rng.normal(-6.0, 3.0, (R, A)),
+                    log_p1=np.log(rng.uniform(0.05, 0.95, R)),
+                    log_p2=np.log(rng.uniform(0.05, 0.95, R)),
+                    sample_label=np.asarray(em.sample_label), num_samples=S,
+                    haploid=False)]
+    arrays, S_max = post.pad_window(window1)
+    g3 = [torch.from_numpy(x).to(dev) for x in arrays]
+    em_cuda.reset_launches()
+    P, tot = em_cuda.window_posteriors(*g3, S_max)
+    P2, tot2 = em_cuda.window_posteriors(*g3, S_max)
+    want_P, want_tot, _ = post.calc_log_sample_posteriors(
+        *g3[:4], S_max, g3[5], read_mask=g3[4])
+    torch.cuda.synchronize()
+    if em_cuda.launches["window_posteriors"] != 2:
+        fail(f"window posteriors: launches {em_cuda.launches}")
+    if not (torch.equal(P, P2) and torch.equal(tot, tot2)):
+        fail("window posteriors: two launches differ")
+    try:
+        assert_posteriors_close(P[0].cpu(), tot[0].cpu(), want_P[0].cpu(),
+                                want_tot[0].cpu())
+    except AssertionError as e:
+        fail(f"window posteriors vs the plain version on the card: {e}")
+    keep = want_P > -50
+    j3_err = float((P - want_P).abs()[keep].max())
+    tot_err = float((tot - want_tot).abs().max())
+    j3_ms = ev_ms(lambda: em_cuda.window_posteriors(*g3, S_max), 20)
+    j3_prof = profiled_us(lambda: em_cuda.window_posteriors(*g3, S_max),
+                          "window_posteriors_kernel")
+    j3_plain_ms = ev_ms(lambda: post.calc_log_sample_posteriors(
+        *g3[:4], S_max, g3[5], read_mask=g3[4]), 20)
+    window = posterior_window()
+    em_cuda.reset_launches()
+    single = post.batched_posteriors(window, dev)
+    four = post.batched_posteriors(window, mesh=pm.Mesh([dev] * 4))
+    step = -(-len(window) // 4)
+    if em_cuda.launches["window_posteriors"] != \
+            1 + len(range(0, len(window), step)):
+        fail(f"batched_posteriors launches {em_cuda.launches}")
+    if not all(np.array_equal(a, c) and np.array_equal(b, d)
+               for (a, b), (c, d) in zip(single, four)):
+        fail("batched_posteriors: 4 shards differ from one device")
+    say("mesh", f"window_posteriors at R=2000 A=12 S=3 (one locus a window)"
+        f" on {smi}: two launches bit-identical; against the plain version "
+        f"on the card log-posteriors within {j3_err:.4g} where it is above "
+        f"-50, totals within {tot_err:.4g} (tolerances atol 5e-3, rtol 1e-5"
+        f" / atol 1e-2, MAP equal); {j3_ms:.4f} ms a call (CUDA events), "
+        f"device time {fmt_ms(ms_or_none(j3_prof[0]))} (torch.profiler), "
+        f"plain version {j3_plain_ms:.4f} ms; bound {j3_bound * 1e3:.4f} us "
+        f"({j3_by}; {j3_bytes} bytes), {j3_bound / j3_ms:.4%} of it; a "
+        f"window of {len(window)} unequal loci on 4 shards of the card == "
+        f"one device (bit-identical), one launch a shard")
+    results = {
+        "window_posteriors": {
+            "ms": j3_ms, "plain_ms": j3_plain_ms, "bound_ms": j3_bound,
+            "bound_by": j3_by, "profiler_ms": ms_or_none(j3_prof[0]),
+            "max_abs_err": j3_err, "shape": f"R={R} A={A} S={S}, one locus"},
+        "em_train": {
+            "ms": j4_ms, "plain_ms": j4_plain_ms, "bound_ms": j4_bound,
+            "bound_by": j4_by, "profiler_ms": ms_or_none(j4_prof[0]),
+            "max_abs_err": em_err,
+            "shape": f"R={R} A={A} S={S}, {one[2]} iterations"}}
+    return results
+
+
 def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
-    """Phase 4: the mesh (4 x the card), --workers, --distributed and
-    --jax-profile."""
+    """Phase 4: the mesh (4 x the card), the EM train and window
+    posteriors kernels, --workers, --distributed and --jax-profile.
+    Returns the two kernels' numbers for the kernels line."""
     import glob
     import socket
 
     import numpy as np
     import torch
-    from longtr_tpu_torch.config import Config
+    from longtr_tpu_torch.ops import em_cuda
     from longtr_tpu_torch.ops import mode_b_cuda as mbc
     from longtr_tpu_torch.ops import mode_b_device as mbd
     from longtr_tpu_torch.ops import pairhmm as ph
@@ -752,68 +960,8 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
                 f"{[len(s) for s in shards]} pairs a shard, one launch a "
                 "shard == the single-device kernels (bit-identical)")
 
-    # (b) the device EM train loop against CPU shards and the host EM
-    cfg = Config()
-    conv = (cfg.max_em_iter, cfg.abs_ll_converge, cfg.frac_ll_converge)
-    locus = realistic_em_locus()
-    em = locus()
-    if (em.num_alleles, len(em.sample_label), em.num_samples) != (12, 2000, 3):
-        fail(f"EM locus has A={em.num_alleles}, R={len(em.sample_label)}, "
-             f"S={em.num_samples}")
-    args = (*em.mesh_inputs(), *conv)
-    on_card = pm.em_train_sharded(mesh, *args)
-    on_cpu = pm.em_train_sharded(pm.Mesh(["cpu"] * mesh.size), *args)
-    param_err = float(np.abs(on_card[1] - on_cpu[1]).max())
-    prob_err = float(np.abs(np.exp(on_card[3]) - np.exp(on_cpu[3])).max())
-    log_err = np.abs(on_card[3] - on_cpu[3])
-    rel_err = float((log_err / np.maximum(np.abs(on_cpu[3]), 1.0)).max())
-    if (on_card[0], on_card[2]) != (on_cpu[0], on_cpu[2]):
-        fail(f"device EM: card (converged, n_iter) {on_card[0], on_card[2]} "
-             f"vs CPU shards {on_cpu[0], on_cpu[2]}")
-    if param_err > 1e-5 or prob_err > 1e-5:
-        fail(f"device EM: card vs CPU shards params {param_err}, "
-             f"posterior probabilities {prob_err}")
-    say("mesh", f"em_train_sharded at R=2000 A=12 S=3: card == CPU shards "
-        f"(converged={on_card[0]}, {on_card[2]} iterations); params within "
-        f"{param_err:.3g}, posterior probabilities within {prob_err:.3g}, "
-        f"log-posteriors within {float(log_err.max()):.3g} "
-        f"(relative {rel_err:.3g})")
-
-    # the kernels one device train launches (a mesh of one shard), counted
-    # by the profiler: the train loop is launch-bound
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        one = pm.em_train_sharded(pm.Mesh([dev]), *args)
-        torch.cuda.synchronize()
-    n_kern = sum(1 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    say("mesh", f"em_train_sharded on 1 shard: {n_kern} CUDA kernel events "
-        f"for {one[2]} iterations, {n_kern / max(one[2], 1):.1f} an "
-        "iteration (torch.profiler)")
-
-    def train_s(mesh_):
-        times = []
-        for _ in range(3):
-            e = locus()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            if not e.train(*conv, mesh=mesh_):
-                fail("EM on the realistic locus did not converge")
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return sorted(times)[1]
-
-    t_host = train_s(None)
-    t_card4 = train_s(mesh)
-    t_card1 = train_s(pm.Mesh([dev]))
-    t_host2 = train_s(None)
-    say("mesh", f"EM train at R=2000 A=12 S=3 on {smi} (wall, median of 3, "
-        f"{on_card[2]} iterations on the mesh): host EMStutterGenotyper."
-        f"train() {t_host * 1e3:.2f} ms and {t_host2 * 1e3:.2f} ms (before "
-        f"and after); device loop, 4 shards on the card {t_card4 * 1e3:.2f} "
-        f"ms, 1 shard {t_card1 * 1e3:.2f} ms")
-    posterior_and_em_bounds(dev, smi, em, t_card1 / on_card[2],
-                            n_kern / max(one[2], 1))
+    # (b) the EM train (J4) and window posteriors (J3) kernels
+    results = em_kernel_phase(dev, smi, mesh)
 
     # (c) the five mesh surfaces of the dryrun catalog
     dry = (dr["fasta"], dr["bed"], dr["bams"])
@@ -831,12 +979,13 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
         # every count to 0 just before the mesh run, read just after
         pc.reset_launches()
         mbc.reset_launches()
+        em_cuda.reset_launches()
         for c in (ph.pairs_scored, mbd.mode_b_elements_scored, pm.em_trains):
             for k in c:
                 c[k] = 0
         meshed, dt_mesh, m = run(f"dryrun {name} mesh", dry, extra, None, tmp,
                                  mesh=mesh)
-        launches = {**pc.launches, **mbc.launches}
+        launches = {**pc.launches, **mbc.launches, **em_cuda.launches}
         scored, trains = dict(ph.pairs_scored), dict(pm.em_trains)
         mode_b_scored = dict(mbd.mode_b_elements_scored)
         got, want = body(meshed), body(plain)
@@ -854,9 +1003,14 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
                                          or mode_b_scored["cpu"]):
             fail(f"dryrun {name} mesh: mode B off the card: {launches} "
                  f"{mode_b_scored}")
-        if name == "em-training" and (not trains["cuda"] or trains["cpu"]):
-            fail(f"dryrun {name} mesh: the device EM did not run on the "
-                 f"card: {trains}")
+        if not launches["window_posteriors"]:
+            fail(f"dryrun {name} mesh: window_posteriors was not launched")
+        if name == "em-training":
+            if (not trains["cuda"] or trains["cpu"]
+                    or launches["em_train"] != trains["cuda"]):
+                fail(f"dryrun {name} mesh: the device EM did not run on the "
+                     f"card, one launch a train: {trains} {launches}")
+            results["em_train"]["launches"] = launches["em_train"]
         say("mesh", f"dryrun {name}: {n_rec} records byte-identical to the "
             f"meshless run | mesh {dt_mesh:.2f} s, meshless {dt_plain:.2f} "
             f"s | launches {launches}; pair rows {scored}; device EM trains "
@@ -926,6 +1080,7 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
         f"{len(resident)} of pairhmm_resident "
         f"({sum(e['dur'] for e in resident):.0f} us); kernel time "
         f"{busy:.0f} us of a {span:.0f} us trace on {smi}")
+    return results
 
 
 def main():
@@ -950,6 +1105,7 @@ def smoke(tmp, dev, smi):
     # ---- 1. device -------------------------------------------------------
     from longtr_tpu_torch import native
     from longtr_tpu_torch.ops import _build, pairhmm_cuda as pc
+    from longtr_tpu_torch.ops import em_cuda
     from longtr_tpu_torch.ops import mode_b_cuda as mbc
     from longtr_tpu_torch.ops import mode_b_device as mbd
     from longtr_tpu_torch.ops import pairhmm as ph
@@ -1324,11 +1480,8 @@ def smoke(tmp, dev, smi):
     t_phase = time.perf_counter()
 
     # ---- 3. e2e ----------------------------------------------------------
-    import functools
-
     from longtr_tpu_torch import cli
     from longtr_tpu_torch.haplotype import poa
-    from longtr_tpu_torch.pipeline import mode_b as mode_b_pipeline
     from longtr_tpu_torch.testing.catalogs import build_catalog, dryrun_catalog
 
     def native_scorer(hap, hl, read, rl, fl, params):
@@ -1386,7 +1539,7 @@ def smoke(tmp, dev, smi):
     # (module, attribute, value)) so that the 1-2 kb batch takes the smem
     # variant and the 2-4 kb batch the workspace kernel, its third so that
     # both take K2's cluster kernel.  The second mode-B dryrun sends its
-    # rows to the block kernel and its tables to the segment kernel.
+    # rows to the block kernel.
     catalogs = [("STR", str_fx, [], {}, []),
                 ("VNTR", vntr_fx, ["--max-tr-len", "10000"], {}, []),
                 ("VNTR smem+streamed", vntr_fx, ["--max-tr-len", "10000"], {},
@@ -1402,10 +1555,7 @@ def smoke(tmp, dev, smi):
                  []),
                 ("dryrun mode-b+haploid block", dry,
                  ["--stutter-align-len", "25", "--haploid-chrs", "chrH"], {},
-                 [(mbc, "WARP_MAX_WIDTH", 0),
-                  (mode_b_pipeline, "mode_b_artifacts",
-                   functools.partial(mbc.mode_b_artifacts,
-                                     variant="segment"))]),
+                 [(mbc, "WARP_MAX_WIDTH", 0)]),
                 ("dryrun core device-posterior", dry, [],
                  {"LONGTR_DEVICE_POSTERIOR": "1"}, [])]
     say("e2e", f"catalogs built in {time.perf_counter() - t:.1f} s "
@@ -1438,6 +1588,7 @@ def smoke(tmp, dev, smi):
         # every count to 0 just before the path, read just after
         pc.reset_launches()
         mbc.reset_launches()
+        em_cuda.reset_launches()
         for c in (ph.pairs_scored, mbd.mode_b_elements_scored):
             for k in c:
                 c[k] = 0
@@ -1448,7 +1599,8 @@ def smoke(tmp, dev, smi):
                 setattr(mod, k, v)
             for k in env:
                 del os.environ[k]
-        counts[tag] = ({**pc.launches, **mbc.launches}, dict(ph.pairs_scored),
+        counts[tag] = ({**pc.launches, **mbc.launches, **em_cuda.launches},
+                       dict(ph.pairs_scored),
                        dict(mbd.mode_b_elements_scored))
     mbc.mode_b_cols = real_mode_b
     for tag, fx, extra, env, routing in catalogs:
@@ -1483,8 +1635,10 @@ def smoke(tmp, dev, smi):
                                "mode_b_cols"],
                 "dryrun mode-b+haploid": ["pairhmm_resident_warp",
                                           "mode_b_artifacts", "mode_b_cols"],
-                "dryrun mode-b+haploid block": ["mode_b_artifacts_segment",
-                                                "mode_b_cols_block"]
+                "dryrun mode-b+haploid block": ["mode_b_artifacts",
+                                                "mode_b_cols_block"],
+                "dryrun core device-posterior": ["pairhmm_resident_warp",
+                                                 "window_posteriors"]
                 }.get(tag, ["pairhmm_resident_warp"])
         for k in need:
             if launches[k] == 0:
@@ -1513,8 +1667,8 @@ def smoke(tmp, dev, smi):
     say("e2e", f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     # ---- 4. mesh ---------------------------------------------------------
-    mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx,
-               results["STR"][0])
+    em = mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx,
+                    results["STR"][0])
     say("mesh", f"phase 4 took {time.perf_counter() - t_phase:.1f} s")
     if "jax" in {k.split(".")[0] for k, v in sys.modules.items() if v}:
         fail("JAX was imported")
@@ -1545,23 +1699,28 @@ def smoke(tmp, dev, smi):
                 "shape": shape}
                for k, (shape, run_tag, pallas) in main.items()]
     # mode B's kernels: the warp row kernel and the artifact warp kernel in
-    # the mode-B STR run, the block row kernel and the artifact segment
-    # kernel in the rerouted mode-B dryrun
+    # the mode-B STR run, the block row kernel in the rerouted mode-B
+    # dryrun; the window posteriors in the device-posterior run; the EM
+    # train in phase 4's em-training mesh surface
     h1 = def_line("longtr_tpu/pipeline/mode_b.py", "_artifact_table_batch")
     j2 = def_line("longtr_tpu/ops/mode_b_device.py", "mode_b_cols")
+    j3 = def_line("longtr_tpu/ops/posterior.py", "batched_posteriors")
+    j4 = def_line("longtr_tpu/parallel/mesh.py", "_em_train_local")
     h1_src = "longtr_tpu_torch/csrc/mode_b_artifacts.cu"
     j2_src = "longtr_tpu_torch/csrc/mode_b.cu"
+    em_src = "longtr_tpu_torch/csrc/em.cu"
+    mb.update(em)
     for name, run_tag, replaces, source in (
             ("mode_b_artifacts", "STR mode B", h1, h1_src),
-            ("mode_b_artifacts_segment", "dryrun mode-b+haploid block", h1,
-             h1_src),
             ("mode_b_cols", "STR mode B", j2, j2_src),
-            ("mode_b_cols_block", "dryrun mode-b+haploid block", j2,
-             j2_src)):
+            ("mode_b_cols_block", "dryrun mode-b+haploid block", j2, j2_src),
+            ("window_posteriors", "dryrun core device-posterior", j3, em_src),
+            ("em_train", None, j4, em_src)):
         k = mb[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": counts[run_tag][0][name],
+                        "launches": counts[run_tag][0][name] if run_tag
+                        else k["launches"],
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": None,

@@ -26,10 +26,9 @@
 // read of the walks on chip, and shortens the chains where the order of
 // the float64 operations allows it.
 //
-// mode_b_artifacts_warp_kernel, the routed kernel.  One block of
-// ART_THREADS threads takes one table and G consecutive segments of its
-// side (G from the wrapper: enough segments that the block's valid
-// columns fill its threads).  It
+// mode_b_artifacts_warp_kernel: one block of ART_THREADS threads takes one
+// table and G consecutive segments of its side (G from the wrapper: enough
+// segments that the block's valid columns fill its threads).  It
 //   1. stages each segment's per-position base byte and its lw/lc (the
 //      float64 log-probabilities of its quality byte) in shared memory;
 //   2. sums load_read_batch's prefixes (match, one per deletion multiple,
@@ -61,11 +60,6 @@
 // entries a column, nothing rescanned), so a second walk costs less than
 // the resident blocks that keeping the entries in shared memory would
 // take (PERF.md §6, H1).
-//
-// mode_b_artifacts_segment_kernel (the first design, kept for comparison
-// and reached only through the wrapper's variant="segment"): one block a
-// (table, segment), one thread a column, walking every D in turn and
-// reading the reads' bytes and qualities from device memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,22 +74,8 @@ constexpr int ART_MAX_SEGS = 16;    // segments a block of the warp kernel
 enum { TD_SIDE, TD_BLEN, TD_PERIOD, TD_DFIRST, TD_NDL, TD_NDEL, TD_NINS,
        TD_BLKOFF, TD_UPOFF, TD_N };
 
-// One reversed read segment in device memory (the segment kernel):
-// StutterAligner's _score at position r.
-struct Seg {
-  const uint8_t* code;
-  const uint8_t* qual;
-  const double* lw;
-  const double* lc;
-  __device__ __forceinline__ double at(int r, uint8_t c) const {
-    return code[r] == c ? lc[qual[r]] : lw[qual[r]];
-  }
-  __device__ __forceinline__ double correct(int r) const {
-    return lc[qual[r]];
-  }
-};
-
-// One staged segment (the warp kernel): the same score from shared memory.
+// One staged read segment: StutterAligner's _score at position r, from
+// shared memory (or the workspace).
 struct Staged {
   const uint8_t* code;
   const double* lw;
@@ -107,22 +87,7 @@ struct Staged {
   __device__ __forceinline__ double correct(int r) const { return lc[r]; }
 };
 
-// load_read_batch's prefixes, offset-major (the segment kernel) ...
-struct PreByOffset {
-  const double* match;
-  const double* dels;
-  const double* ins;
-  int nD, nI;
-  __device__ __forceinline__ double m(int o) const { return match[o]; }
-  __device__ __forceinline__ double del(int o, int k) const {
-    return dels[(size_t)o * nD + k];
-  }
-  __device__ __forceinline__ double in(int o, int k) const {
-    return ins[(size_t)o * nI + k];
-  }
-};
-
-// ... and row-major (the warp kernel): row k holds every offset.
+// load_read_batch's prefixes, row-major: row k holds every offset.
 struct PreByRow {
   const double* match;
   const double* dels;
@@ -139,10 +104,10 @@ struct PreByRow {
 
 // load_read_batch for offset o of a segment of length L: the match prefix
 // over the block, its deletion snapshots and the insertion prefixes, summed
-// in j order.  set_del(k, v) and set_ins(k, v) store snapshot k.  FAST
-// (the warp kernel) counts j modulo the period instead of dividing and
-// unrolls the match prefix by four: the same sums in the same order.
-template <bool FAST, class S, class SetDel, class SetIns>
+// in j order.  set_del(k, v) and set_ins(k, v) store snapshot k.  It
+// counts j modulo the period instead of dividing and unrolls the match
+// prefix by four.
+template <class S, class SetDel, class SetIns>
 __device__ __forceinline__ double prefixes(
     const int o, const int L, const int blk_len, const int period,
     const int n_del, const int nDc, const int n_ins,
@@ -150,11 +115,11 @@ __device__ __forceinline__ double prefixes(
     SetIns& set_ins) {
   double run = 0.0;
   int di = 0, jm = 0;
-#pragma unroll(FAST ? 4 : 1)
+#pragma unroll 4
   for (int j = 0; j < blk_len; j++) {
     const bool in = o + j < L;
     if (in) run = run + sg.at(o + j, blk[j]);
-    const bool snap = FAST ? ++jm == period : (j + 1) % period == 0;
+    const bool snap = ++jm == period;
     if (snap) {
       jm = 0;
       if (j < period * n_del && di < nDc) {
@@ -167,10 +132,10 @@ __device__ __forceinline__ double prefixes(
   int ii = 0;
   jm = 0;
   for (int j = 0; j < period * n_ins; j++) {
-    const int jr = FAST ? jm : j % period;
+    const int jr = jm;
     if (o + j < L)
       ri = ri + (jr < blk_len ? sg.at(o + j, blk[jr]) : sg.correct(o + j));
-    const bool snap = FAST ? ++jm == period : (j + 1) % period == 0;
+    const bool snap = ++jm == period;
     if (snap) {
       jm = 0;
       set_ins(ii, ri);
@@ -236,9 +201,9 @@ __device__ __forceinline__ double size_log_prior(int D, int blk_len,
 
 // A[d, j] without its prior, for D != 0 and block_len + D >= 0: the
 // initial lp of the column (offset = L - 1 - j), then fast_lse_cols over
-// the walk's entries, walked twice.  FAST adds exp(0) = 1 (the max's own
-// term) without calling exp.
-template <bool FAST, class S, class Pre>
+// the walk's entries, walked twice.  The max's own term adds exp(0) = 1
+// without calling exp.
+template <class S, class Pre>
 __device__ __forceinline__ double align_lse(
     const int D, const int k, const double log_prior, const int j,
     const int L, const int blk_len, const int period,
@@ -269,9 +234,7 @@ __device__ __forceinline__ double align_lse(
   }
   // fast_lse_cols: the max of the entries, then their sum in order
   double m = -INFINITY;
-  auto term = [&](double df) {
-    return FAST && df == 0.0 ? 1.0 : exp(df);
-  };
+  auto term = [&](double df) { return df == 0.0 ? 1.0 : exp(df); };
   auto vmax = [&](double e) { m = e > m ? e : m; };
   walk_entries(D, offset, lp, lim, blk_len, period, up, blk, sg, il, vmax);
   if (!isfinite(m)) return m;
@@ -433,8 +396,8 @@ mode_b_artifacts_warp_kernel(const uint8_t* __restrict__ seg_codes,
     double* ins = dels + ds.nDc * Lp;
     auto set_del = [&](int k, double x) { dels[k * Lp + o] = x; };
     auto set_ins = [&](int k, double x) { ins[k * Lp + o] = x; };
-    match[o] = prefixes<true>(o, L, ds.blk_len, ds.period, ds.n_del, ds.nDc,
-                              ds.n_ins, blk, st, set_del, set_ins);
+    match[o] = prefixes(o, L, ds.blk_len, ds.period, ds.n_del, ds.nDc,
+                        ds.n_ins, blk, st, set_del, set_ins);
   }
   // -inf past each segment's end and past n_dl (no lane walks them): a
   // warp a (segment, D) row
@@ -465,79 +428,13 @@ mode_b_artifacts_warp_kernel(const uint8_t* __restrict__ seg_codes,
       val = c.prior + pre.m(L - 1 - j);
     } else {
       const Staged st{codes + g * Lp, sg, sg + Lp};
-      val = c.prior + align_lse<true>(c.D, c.k, c.log_prior, j, L,
-                                      ds.blk_len, ds.period, ups, blk, st,
-                                      pre, il, thresh);
+      val = c.prior + align_lse(c.D, c.k, c.log_prior, j, L, ds.blk_len,
+                                ds.period, ups, blk, st, pre, il, thresh);
     }
     ob[((size_t)g * n_d + d) * Lp + j] = (OutT)val;
     while (v + ART_THREADS >= V && d < ds.n_dl) {
       v -= V;
       d++;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The segment kernel (the first design).
-// ---------------------------------------------------------------------------
-
-template <typename OutT>
-__global__ void __launch_bounds__(256)
-mode_b_artifacts_segment_kernel(const uint8_t* __restrict__ seg_codes,
-                                const uint8_t* __restrict__ seg_quals,
-                                const int32_t* __restrict__ seg_len,
-                                const double* __restrict__ lw64,
-                                const double* __restrict__ lc64,
-                                const int32_t* __restrict__ tdesc,
-                                const uint8_t* __restrict__ blk_bytes,
-                                const int32_t* __restrict__ upstream,
-                                const double* __restrict__ priors,
-                                const double* __restrict__ il, int P, int Lp,
-                                int n_d, int pre_n, double impossible,
-                                double thresh, int blk0,
-                                double* __restrict__ ws,
-                                OutT* __restrict__ out) {
-  extern __shared__ double art_smem[];
-  const int g = blk0 + blockIdx.x;        // (table, segment) = t * P + p
-  const int t = g / P, p = g - t * P;
-  const Desc ds = load_desc(tdesc, t, blk_bytes, upstream, pre_n);
-  const size_t sp = (size_t)ds.side * P + p;
-  const Seg sg{seg_codes + sp * Lp, seg_quals + sp * Lp, lw64, lc64};
-  const int L = min(max(seg_len[sp], 0), Lp);
-  double* match = ws != nullptr ? ws + (size_t)blockIdx.x * pre_n * Lp
-                                : art_smem;
-  double* dels = match + Lp;
-  double* ins = dels + (size_t)Lp * ds.nDc;
-
-  // load_read_batch: the prefixes of every offset o
-  for (int o = threadIdx.x; o < L; o += blockDim.x) {
-    auto set_del = [&](int k, double x) { dels[(size_t)o * ds.nDc + k] = x; };
-    auto set_ins = [&](int k, double x) { ins[(size_t)o * ds.nIc + k] = x; };
-    match[o] = prefixes<false>(o, L, ds.blk_len, ds.period, ds.n_del,
-                               ds.nDc, ds.n_ins, ds.blk, sg, set_del, set_ins);
-  }
-  __syncthreads();
-
-  const PreByOffset pre{match, dels, ins, ds.nDc, ds.nIc};
-  OutT* ob = out + (size_t)blockIdx.x * n_d * Lp;
-  const double* pri = priors + (size_t)t * n_d;
-  for (int j = threadIdx.x; j < Lp; j += blockDim.x) {
-    for (int d = 0; d < n_d; d++) {
-      const int D = ds.d_first + d * ds.period;
-      double v;
-      if (j >= L || d >= ds.n_dl) {
-        v = -INFINITY;                      // column or d padding
-      } else if (ds.blk_len + D < 0) {
-        v = impossible;                     // base_len < 0
-      } else if (D == 0) {
-        v = pri[d] + pre.m(L - 1 - j);
-      } else {
-        v = pri[d] + align_lse<false>(
-                         D, size_index(D, ds.period),
-                         size_log_prior(D, ds.blk_len, il), j, L, ds.blk_len,
-                         ds.period, ds.ups, ds.blk, sg, pre, il, thresh);
-      }
-      ob[(size_t)d * Lp + j] = (OutT)v;
     }
   }
 }
@@ -592,12 +489,6 @@ long mode_b_artifacts_warp_ws_doubles(int Lp, int pre_n) {
   return (pre_n + 2L) * Lp + (Lp + 7) / 8;
 }
 
-// Dynamic shared memory of a segment-kernel launch whose prefixes live on
-// chip.
-long mode_b_artifacts_smem_bytes(int Lp, int pre_n) {
-  return (long)pre_n * Lp * (long)sizeof(double);
-}
-
 // All pointers are device pointers.  seg_codes, seg_quals (2, P, Lp)
 // uint8; seg_len (2, P) int32; lw64, lc64 (256,) float64; tdesc (T, 9)
 // int32; blk_bytes uint8; upstream int32; priors (T, n_d) float64; il
@@ -629,37 +520,6 @@ int mode_b_artifacts_warp(const uint8_t* seg_codes, const uint8_t* seg_quals,
   return out64 ? ART_WARP_C(double) : ART_WARP_C(float);
 #undef ART_WARP_C
 #undef ART_WARP
-}
-
-// The segment kernel: arguments as mode_b_artifacts_warp, one block a
-// (table, segment), blocks blk0 .. blk0 + nblk - 1 of T * P; ws is null
-// (prefixes in shared memory) or an (nblk, pre_n, Lp) float64 workspace.
-int mode_b_artifacts(const uint8_t* seg_codes, const uint8_t* seg_quals,
-                     const int32_t* seg_len, const double* lw64,
-                     const double* lc64, const int32_t* tdesc,
-                     const uint8_t* blk_bytes, const int32_t* upstream,
-                     const double* priors, const double* il, int P, int Lp,
-                     int n_d, int pre_n, double impossible, double thresh,
-                     int blk0, int nblk, int threads, double* ws, int out64,
-                     void* out, void* stream) {
-  const long smem = ws != nullptr ? 0 : mode_b_artifacts_smem_bytes(Lp, pre_n);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (out64) {
-    const int e = set_smem(mode_b_artifacts_segment_kernel<double>, smem, 0);
-    if (e != 0) return e;
-    mode_b_artifacts_segment_kernel<double><<<nblk, threads, smem, st>>>(
-        seg_codes, seg_quals, seg_len, lw64, lc64, tdesc, blk_bytes, upstream,
-        priors, il, P, Lp, n_d, pre_n, impossible, thresh, blk0, ws,
-        (double*)out);
-  } else {
-    const int e = set_smem(mode_b_artifacts_segment_kernel<float>, smem, 0);
-    if (e != 0) return e;
-    mode_b_artifacts_segment_kernel<float><<<nblk, threads, smem, st>>>(
-        seg_codes, seg_quals, seg_len, lw64, lc64, tdesc, blk_bytes, upstream,
-        priors, il, P, Lp, n_d, pre_n, impossible, thresh, blk0, ws,
-        (float*)out);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` (the pair-HMM kernels, mode B's artifact tables, mode
-B's row DP) exposes a plain C interface, so ``nvcc`` compiles each into an
-object, all at once, and links them into one shared library, bound with
+B's row DP, the window posteriors and the EM train loop) exposes a plain C
+interface, so ``nvcc`` compiles each into an object, all at once, and
+links them into one shared library, bound with
 ``ctypes``: no torch headers, no ``ninja``.  The build runs at first use,
 into ``longtr_tpu_torch/_build/``, and is keyed by a hash of every source
 and the flags, so an edited source rebuilds and an unchanged tree loads
@@ -99,8 +100,6 @@ def _bind(lib) -> None:
     f, d = ctypes.c_float, ctypes.c_double
     lib.mode_b_smem_bytes.argtypes = [i]
     lib.mode_b_smem_bytes.restype = ctypes.c_long
-    lib.mode_b_artifacts_smem_bytes.argtypes = [i, i]
-    lib.mode_b_artifacts_smem_bytes.restype = ctypes.c_long
     for name in ("mode_b_warp_max_width", "mode_b_warp_max_nd"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
@@ -108,9 +107,6 @@ def _bind(lib) -> None:
     lib.mode_b_cols_block.restype = i
     lib.mode_b_cols_warp.argtypes = [p] * 15 + [i] * 6 + [f, f, p, p]
     lib.mode_b_cols_warp.restype = i
-    lib.mode_b_artifacts.argtypes = ([p] * 10 + [i] * 4 + [d, d] + [i] * 3
-                                     + [p, i, p, p])
-    lib.mode_b_artifacts.restype = i
     lib.mode_b_artifacts_max_segments.argtypes = []
     lib.mode_b_artifacts_max_segments.restype = i
     lib.mode_b_artifacts_warp_smem_bytes.argtypes = [i] * 5
@@ -120,6 +116,16 @@ def _bind(lib) -> None:
     lib.mode_b_artifacts_warp.argtypes = ([p] * 10 + [i] * 6 + [d, d] + [i] * 2
                                           + [p, i, p, p])
     lib.mode_b_artifacts_warp.restype = i
+    lib.em_train_workspace_floats.argtypes = [i] * 5
+    lib.em_train_workspace_floats.restype = ctypes.c_long
+    lib.em_train_smem_bytes.argtypes = [i] * 4
+    lib.em_train_smem_bytes.restype = ctypes.c_long
+    lib.window_posteriors_smem_bytes.argtypes = [i, i, i]
+    lib.window_posteriors_smem_bytes.restype = ctypes.c_long
+    lib.window_posteriors.argtypes = [p] * 6 + [i] * 6 + [f] + [p] * 6
+    lib.window_posteriors.restype = i
+    lib.em_train.argtypes = [p] * 11 + [i] * 6 + [f] * 3 + [i] + [p] * 3
+    lib.em_train.restype = i
 
 
 def load_library():

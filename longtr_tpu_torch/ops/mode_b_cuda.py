@@ -4,13 +4,11 @@
 - :func:`mode_b_artifacts` builds the artifact tables on the card; the
   plain version is
   :func:`longtr_tpu_torch.ops.mode_b_artifacts.mode_b_artifacts_plain`.
-  It takes the warp kernel: one block a table and up to 16 read segments
-  of its side, their bytes and prefix sums staged in shared memory (or,
-  one segment a block, in a device-memory workspace past about 1.7k
-  columns at 13 artifact sizes), and its threads over (artifact size,
-  valid column), so that a warp walks one shared descent.  The first
-  design, one block a (table, segment) and one thread a column
-  (``variant="segment"``), is reached only by asking for it.
+  Its warp kernel takes one block a table and up to 16 read segments of
+  its side, their bytes and prefix sums staged in shared memory (or, one
+  segment a block, in a device-memory workspace past about 1.7k columns
+  at 13 artifact sizes), and its threads over (artifact size, valid
+  column), so that a warp walks one shared descent.
 - :func:`mode_b_cols` runs the row DP, the port of
   :func:`longtr_tpu.ops.mode_b_device.mode_b_cols` (the jnp row scan), on
   the tables the artifact kernel wrote.  Rows up to
@@ -44,11 +42,9 @@ from longtr_tpu_torch.ops.pairhmm_cuda import (_ptr, _raise_on, _stream,
                                                max_smem_optin)
 
 # Kernel launches; chip_smoke.py zeroes and reads this.
-# "mode_b_artifacts" is the artifact tables' warp kernel,
-# "mode_b_artifacts_segment" their first design; "mode_b_cols" is the row
-# DP's warp kernel, "mode_b_cols_block" its block kernel.
-launches = {"mode_b_artifacts": 0, "mode_b_artifacts_segment": 0,
-            "mode_b_cols": 0, "mode_b_cols_block": 0}
+# "mode_b_artifacts" is the artifact tables' warp kernel; "mode_b_cols" is
+# the row DP's warp kernel, "mode_b_cols_block" its block kernel.
+launches = {"mode_b_artifacts": 0, "mode_b_cols": 0, "mode_b_cols_block": 0}
 
 # Widest rows the router sends to the warp kernel (at most its own limit,
 # mode_b_warp_max_width in csrc/mode_b.cu).  A test may lower it to send
@@ -103,13 +99,6 @@ def _fits(need: int, device) -> bool:
 def fits_on_chip(L: int, device) -> bool:
     """Whether the block kernel's rows of width L fit its shared memory."""
     return _fits(smem_bytes(L), device)
-
-
-def artifacts_smem_bytes(Lp: int, n_d: int) -> int:
-    """Shared memory of a segment-kernel artifact launch of segment width
-    Lp on chip."""
-    return int(_build.load_library().mode_b_artifacts_smem_bytes(
-        Lp, prefix_doubles(n_d)))
 
 
 def takes_warp(L: int, n_d: int) -> bool:
@@ -256,44 +245,23 @@ def _check_artifacts(args, n_d, dtype):
 
 def mode_b_artifacts(seg_codes, seg_quals, seg_len, lw64, lc64, tdesc,
                      blk_bytes, upstream, priors, int_log, *, n_d,
-                     dtype=torch.float32, variant: str | None = None):
+                     dtype=torch.float32):
     """(T * P, n_d, Lp) artifact tables in ``dtype`` (float32, or float64
-    to see the card's values before the cast); the CUDA kernels.  Arguments
-    as :func:`~longtr_tpu_torch.ops.mode_b_artifacts.mode_b_artifacts_plain`.
-    ``variant`` "segment" takes the first design instead of the warp
-    kernel (see :func:`artifact_plan`).
+    to see the card's values before the cast); the CUDA warp kernel
+    (:func:`artifact_plan` sets its segments a block).  Arguments as
+    :func:`~longtr_tpu_torch.ops.mode_b_artifacts.mode_b_artifacts_plain`.
     """
     args = (seg_codes, seg_quals, seg_len, lw64, lc64, tdesc, blk_bytes,
             upstream, priors, int_log)
     if seg_codes.device.type == "cpu":
         return mode_b_artifacts_plain(*args, n_d=n_d, dtype=dtype)
     P, Lp, T = _check_artifacts(args, n_d, dtype)
-    variant = variant or "warp"
-    if variant not in ("warp", "segment"):
-        raise ValueError(f"variant {variant!r}: warp or segment")
     dev = seg_codes.device
     out = torch.empty((T * P, n_d, Lp), dtype=dtype, device=dev)
     pre_n = prefix_doubles(n_d)
     out64 = int(dtype == torch.float64)
     lib = _build.load_library()
     consts = (float(IMPOSSIBLE), LOG_THRESH)
-    if variant == "segment":
-        on_chip = _fits(artifacts_smem_bytes(Lp, n_d), dev)
-        nblk = T * P
-        step = nblk if on_chip else max(1, WORKSPACE_BYTES // (8 * pre_n * Lp))
-        ws = None if on_chip else torch.empty((min(nblk, step), pre_n, Lp),
-                                              dtype=torch.float64, device=dev)
-        threads = min(256, max(32, -(-Lp // 32) * 32))
-        for lo in range(0, nblk, step):
-            hi = min(nblk, lo + step)
-            with torch.cuda.device(dev):
-                rc = lib.mode_b_artifacts(
-                    *[_ptr(x) for x in args], P, Lp, n_d, pre_n, *consts, lo,
-                    hi - lo, threads, None if ws is None else _ptr(ws), out64,
-                    _ptr(out[lo:hi]), _stream(dev))
-            _raise_on(rc, "mode_b_artifacts")
-            launches["mode_b_artifacts_segment"] += 1
-        return out
     n_log = int_log.shape[0]
     G, on_chip = artifact_plan(Lp, n_d, P, n_log, dev)
     nblk = T * -(-P // G)

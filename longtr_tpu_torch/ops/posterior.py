@@ -12,9 +12,11 @@ Port of :mod:`longtr_tpu.ops.posterior`
 with read LLs clamped at -600 first.  The default path computes this on
 the host in float64 (``SeqStutterGenotyper._calc_posteriors``).
 :func:`batched_posteriors` computes it for a window of loci in one float32
-call on a device, or on each shard of a mesh; the pipeline uses it, under
-``LONGTR_DEVICE_POSTERIOR=1`` or with a mesh, only to decide allele
-pruning.
+call on a device, or on each shard of a mesh: on a card one launch of
+csrc/em.cu's window kernel (``ops.em_cuda.window_posteriors``), on the
+CPU :func:`calc_log_sample_posteriors`, the kernel's plain version.  The
+pipeline uses it, under ``LONGTR_DEVICE_POSTERIOR=1`` or with a mesh,
+only to decide allele pruning.
 """
 
 from __future__ import annotations
@@ -103,25 +105,12 @@ def calc_log_sample_posteriors(log_aln_probs, log_p1, log_p2, sample_label,
     return P, totals, totals.sum(dim=-1)
 
 
-def batched_posteriors(loci, device=None, mesh=None):
-    """Posteriors of a WINDOW of loci in one float32 call on ``device``
-    (default: :func:`~longtr_tpu_torch.device.select_device`'s), or one
-    call on each shard of ``mesh``.
-
-    ``loci``: list of dicts with keys ``log_aln_probs`` (R_i, A_i),
-    ``log_p1``/``log_p2`` (R_i,), ``sample_label`` (R_i,), ``num_samples``
-    S_i, ``haploid``.  Each locus is padded to (R_max, A_max, S_max); padded
-    alleles get prior/LL of -1e30 (contribute nothing), padded reads are
-    masked out, and each locus is reduced on its own.  With a mesh of more
-    than one shard, shard k takes the k-th slice of ceil(L / shards) loci
-    on its device; each locus's reduction stays on one device, so the
-    results are the same for any mesh size.
-
-    Returns a list of (posteriors (S_i, A_i, A_i), totals (S_i,)) float32
-    numpy arrays.
-    """
-    devices = (mesh.devices if mesh is not None and mesh.size > 1
-               else (select_device(device),))
+def pad_window(loci):
+    """The padded float32 arrays of a window, as :func:`batched_posteriors`
+    sends them: (log_aln_probs (L, R_max, A_max), log_p1, log_p2 (L,
+    R_max), sample_label (L, R_max) int64, read_mask (L, R_max) bool, prior
+    (L, A_max, A_max)) and S_max.  Padded alleles get prior/LL of -1e30
+    (contribute nothing), padded reads are masked out."""
     L = len(loci)
     R_max = max(l["log_aln_probs"].shape[0] for l in loci)
     A_max = max(l["log_aln_probs"].shape[1] for l in loci)
@@ -141,14 +130,37 @@ def batched_posteriors(loci, device=None, mesh=None):
         mask[i, :R] = True
         prior[i, :A, :A] = np.maximum(genotype_log_priors(A, l["haploid"]),
                                       NEG_PAD)
+    return (LL, p1, p2, label, mask, prior), S_max
+
+
+def batched_posteriors(loci, device=None, mesh=None):
+    """Posteriors of a WINDOW of loci in one float32 call on ``device``
+    (default: :func:`~longtr_tpu_torch.device.select_device`'s), or one
+    call on each shard of ``mesh``.
+
+    ``loci``: list of dicts with keys ``log_aln_probs`` (R_i, A_i),
+    ``log_p1``/``log_p2`` (R_i,), ``sample_label`` (R_i,), ``num_samples``
+    S_i, ``haploid``.  Each locus is padded to (R_max, A_max, S_max)
+    (:func:`pad_window`) and reduced on its own.  With a mesh of more
+    than one shard, shard k takes the k-th slice of ceil(L / shards) loci
+    on its device; each locus's reduction stays on one device, so the
+    results are the same for any mesh size.  A card takes its slice in one
+    launch of the window kernel, one thread-block cluster a locus.
+
+    Returns a list of (posteriors (S_i, A_i, A_i), totals (S_i,)) float32
+    numpy arrays.
+    """
+    from longtr_tpu_torch.ops.em_cuda import window_posteriors
+    devices = (mesh.devices if mesh is not None and mesh.size > 1
+               else (select_device(device),))
+    arrays, S_max = pad_window(loci)
+    L = len(loci)
     step = -(-L // len(devices))
     shards = []
     for k, dev in enumerate(devices[:-(-L // step)]):
-        LLk, p1k, p2k, labk, maskk, priork = (
-            torch.from_numpy(x[k * step:(k + 1) * step]).to(dev)
-            for x in (LL, p1, p2, label, mask, prior))
-        shards.append(calc_log_sample_posteriors(
-            LLk, p1k, p2k, labk, S_max, priork, read_mask=maskk)[:2])
+        shards.append(window_posteriors(
+            *(torch.from_numpy(x[k * step:(k + 1) * step]).to(dev)
+              for x in arrays), S_max))
     P_all = np.concatenate([P.cpu().numpy() for P, _t in shards])
     totals = np.concatenate([t.cpu().numpy() for _P, t in shards])
     out = []

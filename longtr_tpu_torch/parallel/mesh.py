@@ -19,8 +19,12 @@ visible CUDA card.
 The pair-HMM (:func:`pairhmm_batch_sharded`) scores each shard with
 :func:`~longtr_tpu_torch.ops.pairhmm.pairhmm_batch_auto` on the shard's
 device: the CUDA kernels on a card, the plain scan on the CPU.  The EM
-stutter trainer (:func:`em_train_sharded`) runs the whole train loop on
-the mesh in float32, reads sharded, with the two psums of each E-step.
+stutter trainer (:func:`em_train_sharded`) runs the whole train loop in
+float32, reads sharded, with the two psums of each E-step: on a mesh of
+cards in one launch of :func:`~longtr_tpu_torch.ops.em_cuda.em_train` on
+``mesh.devices[0]``, the shards' partial sums formed apart and added in
+shard order inside the kernel; on CPU shards as the plain loop
+:func:`_em_train`, each shard's half of the E-step on its own device.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from longtr_tpu_torch.utils.mathops import LOG_ONE_HALF
+from longtr_tpu_torch.ops import em_cuda
 from longtr_tpu_torch.ops.pairhmm import (AlignmentParams, _check_batch,
                                           pairhmm_batch_auto)
 from longtr_tpu_torch.ops.posterior import LL_CLAMP
@@ -146,11 +151,14 @@ def pairhmm_batch_sharded(hap_codes, hap_lens, read_codes, read_lens,
 #
 # The JAX package runs the whole train loop (E-step, closed-form M-step,
 # convergence tests; em_stutter_genotyper.cpp:170-226) as one
-# lax.while_loop inside shard_map.  Here it is a Python loop over device
-# tensors with one host read a iteration (the stop flag); the per-shard
-# halves of the E-step run on each shard's device and the replicated state
-# (priors, parameters, posteriors) on the mesh's first device.  All of it
-# is float32, like the reference.
+# lax.while_loop inside shard_map.  On a mesh of cards so does the port:
+# csrc/em.cu's em_train_kernel runs every iteration in one launch on the
+# mesh's first card (em_cuda.em_train).  Its plain version, _em_train, is
+# a Python loop over device tensors with one host read an iteration (the
+# stop flag); the per-shard halves of the E-step run on each shard's
+# device and the replicated state (priors, parameters, posteriors) on the
+# mesh's first device.  CPU meshes run it.  All of it is float32, like the
+# reference.
 
 _EM_TOL = 1e-10
 _EM_MAX_PARAM_DIFF = 1e-4
@@ -254,7 +262,8 @@ def _em_estep_stats(LL, log_p1, log_p2, sample_label, valid, cat, w_in,
 
 def _em_train(mesh: Mesh, shards, init_priors, *, num_samples: int,
               haploid: bool, max_iter: int, min_abs: float, min_frac: float):
-    """The EM train loop over read shards (dicts of per-shard tensors).
+    """The EM train loop over read shards (dicts of per-shard tensors);
+    the plain version of ``em_cuda.em_train``.
 
     Returns (converged, params (6,), n_iter, posteriors (S, A, A) of the
     final E-step, totals (S,)) as tensors on ``mesh.devices[0]``."""
@@ -310,6 +319,47 @@ def _em_train(mesh: Mesh, shards, init_priors, *, num_samples: int,
     return converged, params, it, Pn, totals
 
 
+def em_tables(rep, eff, in_frame, log_p1, log_p2, sample_label, cat, w_in,
+              w_out, n_shards: int):
+    """The train's tables as the EM kernel and its plain version take
+    them: (rep, eff, in_frame, log_p1, log_p2, label, cat, w_in, w_out,
+    valid), reads padded to a multiple of ``n_shards``; padded reads are
+    not valid."""
+    R = np.shape(rep)[0]
+    arrays, _ = pad_to_multiple(
+        (np.asarray(rep, np.int32), np.asarray(eff, np.int32),
+         np.asarray(in_frame, bool), np.asarray(log_p1, np.float32),
+         np.asarray(log_p2, np.float32), np.asarray(sample_label, np.int64),
+         np.asarray(cat, np.int32), np.asarray(w_in, np.float32),
+         np.asarray(w_out, np.float32), np.ones(R, bool)), n_shards)
+    return arrays
+
+
+def em_train_plain(mesh: Mesh, tables, init_priors, *, num_samples: int,
+                   haploid: bool, max_iter: int, min_abs: float,
+                   min_frac: float):
+    """The plain train loop (:func:`_em_train`) over :func:`em_tables`'
+    tables, read shard k on ``mesh.devices[k]``; its result packed as
+    ``em_cuda.em_train`` packs the kernel's, on the host."""
+    shards = [dict(zip(em_cuda.EM_NAMES[:-1], parts))
+              for parts in zip(*shard_batch(mesh, *tables))]
+    converged, params, it, Pn, totals = _em_train(
+        mesh, shards, torch.as_tensor(init_priors).to(mesh.devices[0]),
+        num_samples=num_samples, haploid=haploid, max_iter=int(max_iter),
+        min_abs=float(min_abs), min_frac=float(min_frac))
+    return torch.cat([torch.tensor([float(converged), float(it)]),
+                      params.cpu(), totals.cpu(), Pn.cpu().flatten()])
+
+
+def em_result(out, num_samples: int, num_alleles: int):
+    """(converged, params (6,), n_iter, posteriors (S, A, A), totals (S,))
+    of a packed train result, as float64 host values."""
+    converged, params, it, Pn, totals = em_cuda.unpack(
+        torch.as_tensor(out).cpu().numpy(), num_samples, num_alleles)
+    return (converged, params.astype(np.float64), it, Pn.astype(np.float64),
+            totals.astype(np.float64))
+
+
 def em_train_sharded(mesh: Mesh, rep, eff, in_frame, log_p1, log_p2,
                      sample_label, cat, w_in, w_out, init_priors,
                      num_samples: int, haploid: bool, max_iter: int,
@@ -324,25 +374,28 @@ def em_train_sharded(mesh: Mesh, rep, eff, in_frame, log_p1, log_p2,
 
     Reads are padded to split evenly over the mesh; padded reads are
     masked and contribute to no posterior, statistic or LL.
+
+    On a mesh whose first device is a card the whole train runs there in
+    one kernel launch, after one copy of the padded tables, and the host
+    reads its result once.  Its numbers follow the mesh's shard count, as
+    the plain version's do: the kernel forms each shard's partial sums
+    apart and adds them in shard order.  The JAX package spreads the
+    E-step over the mesh's devices instead; a single-launch loop cannot
+    add across cards, and at R * A^2 ~ 3e5 terms a locus there is nothing
+    to gain from spreading it.
     """
-    R, A = np.shape(rep)
-    arrays, _ = pad_to_multiple(
-        (np.asarray(rep, np.int32), np.asarray(eff, np.int32),
-         np.asarray(in_frame, bool), np.asarray(log_p1, np.float32),
-         np.asarray(log_p2, np.float32), np.asarray(sample_label, np.int64),
-         np.asarray(cat, np.int32), np.asarray(w_in, np.float32),
-         np.asarray(w_out, np.float32), np.ones(R, bool)), mesh.size)
-    names = ("rep", "eff", "in_frame", "log_p1", "log_p2", "label", "cat",
-             "w_in", "w_out", "valid")
-    shards = [dict(zip(names, parts))
-              for parts in zip(*shard_batch(mesh, *arrays))]
+    A = np.shape(rep)[1]
+    tables = em_tables(rep, eff, in_frame, log_p1, log_p2, sample_label, cat,
+                       w_in, w_out, mesh.size)
+    init = np.asarray(init_priors, np.float32)
+    kw = dict(num_samples=num_samples, haploid=haploid, max_iter=max_iter,
+              min_abs=min_abs, min_frac=min_frac)
     d0 = mesh.devices[0]
-    init = torch.from_numpy(np.asarray(init_priors, np.float32)).to(d0)
     em_trains[d0.type] += 1
-    converged, params, it, Pn, totals = _em_train(
-        mesh, shards, init, num_samples=num_samples, haploid=haploid,
-        max_iter=int(max_iter), min_abs=float(min_abs),
-        min_frac=float(min_frac))
-    return (converged, params.cpu().numpy().astype(np.float64), it,
-            Pn.cpu().numpy().astype(np.float64),
-            totals.cpu().numpy().astype(np.float64))
+    if d0.type == "cuda":
+        out = em_cuda.em_train(
+            *(torch.from_numpy(a).to(d0) for a in (*tables, init)),
+            n_shards=mesh.size, **kw)
+    else:
+        out = em_train_plain(mesh, tables, torch.from_numpy(init), **kw)
+    return em_result(out, num_samples, A)          # the one host read

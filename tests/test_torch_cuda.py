@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
-the pair-HMM kernels against the plain scan and the native scorer, and
-the mode-B kernel against the plain torch rows.
+the pair-HMM kernels against the plain scan and the native scorer, the
+mode-B kernels against the host tables and the plain torch rows, and the
+window posteriors and EM train kernels against the plain torch
+posteriors and train loop.
 
 This file imports no JAX, so it also runs where JAX is not installed, with
 the suite's JAX conftest switched off:
@@ -9,11 +11,14 @@ the suite's JAX conftest switched off:
 
 Without a card its tests skip.  It also holds the seeded batches that
 tests/test_torch_pairhmm.py and tests/test_torch_mode_b.py feed to the
-plain versions and to longtr_tpu's scorers on the CPU; the mode-B
-fixtures build their haplotypes and reads from the classes they are given
+plain versions and to longtr_tpu's scorers on the CPU (the cases of the
+window posteriors and the EM train loop are tests/_torch_cases.py's);
+the mode-B fixtures build their haplotypes and reads from the classes they are given
 (the port's by default), so that each package scores its own objects.
 """
 
+import os
+import sys
 import types
 
 import numpy as np
@@ -22,11 +27,19 @@ import torch
 
 from longtr_tpu_torch import native
 from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE
+from longtr_tpu_torch.ops import em_cuda
 from longtr_tpu_torch.ops import mode_b_cuda
 from longtr_tpu_torch.ops import mode_b_device
 from longtr_tpu_torch.ops import pairhmm as port
 from longtr_tpu_torch.ops import pairhmm_cuda
+from longtr_tpu_torch.ops import posterior
+from longtr_tpu_torch.parallel import mesh as pm
 from longtr_tpu_torch.pipeline.mode_b import ARTIFACT_KEYS, ROW_KEYS
+
+sys.path.insert(0, os.path.dirname(__file__))
+from _torch_cases import (assert_em_close, assert_posteriors_close,  # noqa: E402
+                          cohort_case, em_case, plain_em_train,
+                          posterior_window, random_case)
 
 BASES = np.array(list("ACGT"))
 CUSTOM = [-2.0, -0.3, -1.5, -0.25, -0.0001, -8.0, -9.0]
@@ -617,7 +630,6 @@ def test_mode_b_kernel_bit_identical(cuda_device, case, monkeypatch):
     outs.append(mode_b_cuda.mode_b_cols(*g, n_d=n_d, variant="block"))
     torch.cuda.synchronize()
     assert mode_b_cuda.launches == {"mode_b_artifacts": 0,
-                                    "mode_b_artifacts_segment": 0,
                                     "mode_b_cols": 1, "mode_b_cols_block": 3}
     for out in outs:
         assert out.dtype == torch.float32 and out.shape == want.shape
@@ -672,7 +684,6 @@ def test_mode_b_kernel_wider_than_shared_memory(cuda_device):
     want = mode_b_device.mode_b_cols_plain(*g, n_d=prep["n_d"])
     torch.cuda.synchronize()
     assert mode_b_cuda.launches == {"mode_b_artifacts": 0,
-                                    "mode_b_artifacts_segment": 0,
                                     "mode_b_cols": 0, "mode_b_cols_block": 1}
     assert got.device == cuda_device and torch.equal(got, want)
 
@@ -703,17 +714,15 @@ def _artifact_inputs_on(inp, device):
             for k in ARTIFACT_KEYS]
 
 
-def _artifact_kernel_vs_host(aligner, inp, n_d, P, device, **kw):
-    """An artifact kernel's float32 tables (``kw``: the wrapper's variant)
-    against the host numpy code's (tolerance 0) and
-    its float64 values within rtol 1e-12 (a last-bit exp/log difference);
-    returns the float64 tables on the card."""
+def _artifact_kernel_vs_host(aligner, inp, n_d, P, device):
+    """The artifact kernel's float32 tables against the host numpy code's
+    (tolerance 0) and its float64 values within rtol 1e-12 (a last-bit
+    exp/log difference); returns the float64 tables on the card."""
     g = _artifact_inputs_on(inp, device)
     host = aligner.host_artifact_tables(dict(inp, P=P, n_d=n_d,
                                              dtype=np.float64))
-    got32 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, **kw)
-    got64 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64,
-                                         **kw)
+    got32 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d)
+    got64 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64)
     torch.cuda.synchronize()
     assert got32.dtype == torch.float32 and got32.shape == host.shape
     np.testing.assert_array_equal(got32.cpu().numpy(),
@@ -734,20 +743,20 @@ def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
     """Random repeat blocks (homopolymers and not, shorter than the
     largest deletion), empty and one-base segments, padding: the warp
     kernel's tables equal the host's under each plan, with the region in
-    shared memory and on the workspace, and equal the segment kernel's
-    float64 values exactly (the same operations in the same order)."""
+    shared memory and on the workspace, and its float64 values are the
+    same under every plan."""
     aligner, tables, ss, L_max, n_d = artifact_case(
         trial, _card_aligner(cuda_device))
     inp = aligner.artifact_inputs(tables, ss, L_max, n_d)
     P = len(ss[0])
     mode_b_cuda.reset_launches()
-    first = mode_b_cuda.mode_b_artifacts(
-        *_artifact_inputs_on(inp, cuda_device), n_d=n_d, dtype=torch.float64,
-        variant="segment").cpu().numpy()
+    first = None
     for columns in WARP_PLANS:
         if columns is not None:
             monkeypatch.setattr(mode_b_cuda, "ARTIFACT_BLOCK_COLUMNS", columns)
         got = _artifact_kernel_vs_host(aligner, inp, n_d, P, cuda_device)
+        if first is None:
+            first = got
         np.testing.assert_array_equal(got, first)
     monkeypatch.undo()
     monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
@@ -755,29 +764,8 @@ def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
                                      cuda_device) == (1, False)
     _artifact_kernel_vs_host(aligner, inp, n_d, P, cuda_device)
     assert mode_b_cuda.launches == {
-        "mode_b_artifacts": 2 * len(WARP_PLANS) + 2,
-        "mode_b_artifacts_segment": 1, "mode_b_cols": 0,
+        "mode_b_artifacts": 2 * len(WARP_PLANS) + 2, "mode_b_cols": 0,
         "mode_b_cols_block": 0}
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("trial", range(12))
-def test_mode_b_artifacts_segment_kernel_random_blocks(cuda_device, trial,
-                                                       monkeypatch):
-    """The first design (variant="segment") on the same blocks equals the
-    host's tables, with the prefixes in shared memory and on the
-    workspace."""
-    aligner, tables, ss, L_max, n_d = artifact_case(
-        trial, _card_aligner(cuda_device))
-    inp = aligner.artifact_inputs(tables, ss, L_max, n_d)
-    mode_b_cuda.reset_launches()
-    _artifact_kernel_vs_host(aligner, inp, n_d, len(ss[0]), cuda_device,
-                             variant="segment")
-    monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
-    _artifact_kernel_vs_host(aligner, inp, n_d, len(ss[0]), cuda_device,
-                             variant="segment")
-    assert mode_b_cuda.launches["mode_b_artifacts_segment"] == 4
-    assert mode_b_cuda.launches["mode_b_artifacts"] == 0
 
 
 @pytest.mark.gpu
@@ -785,15 +773,13 @@ def test_mode_b_artifacts_segment_kernel_random_blocks(cuda_device, trial,
 def test_mode_b_card_path_equals_host_tables(cuda_device, case):
     """The default path on the card (both kernels) gives the LLs of the
     reference path (host numpy tables, plain rows on the card) exactly,
-    and the tables of both artifact kernels equal the host's, with the
-    warp kernel's region in shared memory and on the workspace."""
+    and the artifact kernel's tables equal the host's, with its region in
+    shared memory and on the workspace."""
     card, alns, seeds = mode_b_case(case, _card_aligner(cuda_device))
     ref, _a, _s = mode_b_case(case, _card_aligner(cuda_device, True))
     prep = card.score_reads_batch_prepare(alns, seeds)
     assert "A_tab" not in prep
-    for variant in ("warp", "segment"):
-        _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"],
-                                 cuda_device, variant=variant)
+    _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"], cuda_device)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(mode_b_cuda, "smem_limit_bytes", 0)
         _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"],
@@ -801,7 +787,6 @@ def test_mode_b_card_path_equals_host_tables(cuda_device, case):
     mode_b_cuda.reset_launches()
     got = card.score_reads_batch_finish(prep)
     assert mode_b_cuda.launches == {"mode_b_artifacts": 1,
-                                    "mode_b_artifacts_segment": 0,
                                     "mode_b_cols": 1, "mode_b_cols_block": 0}
     want = ref.score_reads_batch(alns, seeds)
     assert sum(mode_b_cuda.launches.values()) == 2
@@ -815,17 +800,12 @@ def test_mode_b_artifacts_refuses_what_it_cannot_take(cuda_device):
     g = _artifact_inputs_on(aligner.artifact_inputs(tables, ss, L_max, n_d),
                             cuda_device)
     mode_b_cuda.reset_launches()
-    for variant in ("warp", "segment"):
-        with pytest.raises(ValueError, match="dtype"):
-            mode_b_cuda.mode_b_artifacts(*g[:3], g[3].float(), *g[4:],
-                                         n_d=n_d, variant=variant)
-        with pytest.raises(ValueError, match="shape"):
-            mode_b_cuda.mode_b_artifacts(*g, n_d=n_d + 1, variant=variant)
-        with pytest.raises(ValueError, match="float32 or float64"):
-            mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float16,
-                                         variant=variant)
-    with pytest.raises(ValueError, match="warp or segment"):
-        mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, variant="block")
+    with pytest.raises(ValueError, match="dtype"):
+        mode_b_cuda.mode_b_artifacts(*g[:3], g[3].float(), *g[4:], n_d=n_d)
+    with pytest.raises(ValueError, match="shape"):
+        mode_b_cuda.mode_b_artifacts(*g, n_d=n_d + 1)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float16)
     assert not any(mode_b_cuda.launches.values())
 
 
@@ -845,3 +825,171 @@ def test_mode_b_artifacts_warp_refuses_shapes_it_cannot_take(cuda_device,
     G, on_chip = mode_b_cuda.artifact_plan(72, 13, 512, 21, cuda_device)
     assert on_chip and G <= mode_b_cuda._build.load_library() \
         .mode_b_artifacts_max_segments() == 16
+
+
+# ---------------------------------------------------------------------------
+# The window posteriors (J3) and the EM train loop (J4), csrc/em.cu
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_window_posteriors_kernel_matches_plain(cuda_device):
+    """The window kernel on a padded window equals the plain posteriors on
+    the card at the tolerances, locus by locus, and a second launch gives
+    the same bits."""
+    loci = posterior_window()
+    arrays, S_max = posterior.pad_window(loci)
+    g = [torch.from_numpy(x).to(cuda_device) for x in arrays]
+    em_cuda.reset_launches()
+    P, tot = em_cuda.window_posteriors(*g, S_max)
+    P2, tot2 = em_cuda.window_posteriors(*g, S_max)
+    want_P, want_tot, _ = posterior.calc_log_sample_posteriors(
+        *g[:4], S_max, g[5], read_mask=g[4])
+    torch.cuda.synchronize()
+    assert em_cuda.launches == {"window_posteriors": 2, "em_train": 0}
+    assert torch.equal(P, P2) and torch.equal(tot, tot2)
+    for i, l in enumerate(loci):
+        A, S = l["log_aln_probs"].shape[1], l["num_samples"]
+        assert_posteriors_close(P[i, :S, :A, :A].cpu(), tot[i, :S].cpu(),
+                                want_P[i, :S, :A, :A].cpu(),
+                                want_tot[i, :S].cpu())
+
+
+@pytest.mark.gpu
+def test_window_posteriors_kernel_takes_an_infinite_prior(cuda_device):
+    """calc_log_sample_posteriors's own inputs for a haploid locus, whose
+    heterozygote prior is -inf in float32: the kernel meets the tolerances
+    against the plain version on the card."""
+    c = random_case(np.random.default_rng(33), R=30, A=6, S=2, haploid=True)
+    with np.errstate(over="ignore"):
+        prior = posterior.genotype_log_priors(6, True).astype(np.float32)
+    assert np.isneginf(prior).any()
+    g = [torch.from_numpy(np.asarray(x, np.float32)[None]).to(cuda_device)
+         for x in (c["log_aln_probs"], c["log_p1"], c["log_p2"])]
+    lab = torch.from_numpy(c["sample_label"].astype(np.int64)[None]).to(
+        cuda_device)
+    mask = torch.ones_like(lab, dtype=torch.bool)
+    pr = torch.from_numpy(prior[None]).to(cuda_device)
+    P, tot = em_cuda.window_posteriors(*g, lab, mask, pr, 2)
+    want_P, want_tot, _ = posterior.calc_log_sample_posteriors(
+        *g, lab, 2, pr, read_mask=mask)
+    assert_posteriors_close(P[0].cpu(), tot[0].cpu(), want_P[0].cpu(),
+                            want_tot[0].cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 3])
+def test_window_posteriors_mesh_bit_identical(cuda_device, shards):
+    """batched_posteriors on one card and split over a mesh of shards of
+    it: one launch a shard that holds loci, the same bits."""
+    loci = posterior_window()
+    em_cuda.reset_launches()
+    one = posterior.batched_posteriors(loci, cuda_device)
+    assert em_cuda.launches["window_posteriors"] == 1
+    many = posterior.batched_posteriors(loci,
+                                        mesh=pm.Mesh([cuda_device] * shards))
+    step = -(-len(loci) // shards)
+    assert em_cuda.launches["window_posteriors"] == \
+        1 + len(range(0, len(loci), step))
+    for (P, t), (Pm, tm) in zip(one, many):
+        assert np.array_equal(P, Pm) and np.array_equal(t, tm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("name", ["diploid", "haploid", "max_iter"])
+def test_em_train_kernel_matches_plain(cuda_device, name, shards):
+    """em_train_sharded on a mesh of shards of the card: one launch a
+    train, the same bits from launch to launch, the full tolerances
+    against the plain loop on as many shards of the card, and the
+    cross-shard criterion ((converged, n_iter) equal, parameters within
+    1e-5) against the plain loop on as many CPU shards."""
+    tables, max_iter = em_case(name)
+    args = (*tables, max_iter, 0.01, 0.001)
+    mesh = pm.Mesh([cuda_device] * shards)
+    em_cuda.reset_launches()
+    got = pm.em_train_sharded(mesh, *args)
+    again = pm.em_train_sharded(mesh, *args)
+    assert em_cuda.launches == {"window_posteriors": 0, "em_train": 2}
+    assert (got[0], got[2]) == (again[0], again[2])
+    for a, b in zip((got[1], got[3], got[4]), (again[1], again[3],
+                                               again[4])):
+        np.testing.assert_array_equal(a, b)
+    assert got[0] == (name != "max_iter")
+    assert_em_close(got, plain_em_train(mesh, tables, max_iter, 0.01, 0.001))
+    same = pm.em_train_sharded(pm.Mesh(["cpu"] * shards), *args)
+    assert (got[0], got[2]) == (same[0], same[2])
+    np.testing.assert_allclose(got[1], same[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_em_train_kernel_first_iteration_and_no_budget(cuda_device):
+    """The first iteration's NaN frac_change cannot stop the train: a
+    one-step budget ends unconverged; no budget runs nothing and returns
+    the initial parameters and zero posteriors."""
+    tables, _ = em_case("diploid")
+    mesh = pm.Mesh([cuda_device] * 2)
+    got = pm.em_train_sharded(mesh, *tables, 1, 1e9, 1e9)
+    assert (got[0], got[2]) == (False, 1)
+    assert_em_close(got, plain_em_train(mesh, tables, 1, 1e9, 1e9))
+    zero = pm.em_train_sharded(mesh, *tables, 0, 0.01, 0.001)
+    assert zero[:1] == (False,) and zero[2] == 0
+    assert not zero[3].any() and not zero[4].any()
+    np.testing.assert_array_equal(
+        zero[1], np.float32([0.9, 0.1, 0.1, 0.8, 0.01, 0.01]))
+
+
+@pytest.mark.gpu
+def test_em_train_kernel_many_samples(cuda_device):
+    """A cohort whose S * A * A exceeds what phase F stages in shared
+    memory: the kernel reads the posteriors from device memory.  It meets
+    the full tolerances against the plain loop on as many CPU shards, and
+    against the plain loop on the card (another float32 order of the same
+    sums, which on this cohort is itself as far from CPU shards as the
+    bound) (converged, n_iter) equal, parameters and posterior
+    probabilities within 1e-5."""
+    tables = cohort_case()
+    assert tables[10] * np.shape(tables[0])[1] ** 2 > 40960
+    args = (*tables, 100, 0.01, 0.001)
+    mesh = pm.Mesh([cuda_device] * 2)
+    em_cuda.reset_launches()
+    got = pm.em_train_sharded(mesh, *args)
+    assert em_cuda.launches["em_train"] == 1
+    assert_em_close(got, pm.em_train_sharded(pm.Mesh(["cpu"] * 2), *args))
+    want = plain_em_train(mesh, tables, 100, 0.01, 0.001)
+    assert (got[0], got[2]) == (want[0], want[2])
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.exp(got[3]), np.exp(want[3]), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_em_kernels_refuse_what_they_cannot_take(cuda_device):
+    tables, _ = em_case("haploid")
+    R, A = np.shape(tables[0])
+    rep = torch.from_numpy(np.asarray(tables[0], np.int32)).to(cuda_device)
+    eff = torch.from_numpy(np.asarray(tables[1], np.int32)).to(cuda_device)
+    inf = torch.from_numpy(np.asarray(tables[2], bool)).to(cuda_device)
+    p1, p2, wi, wo = (torch.from_numpy(np.asarray(x, np.float32)).to(
+        cuda_device) for x in (tables[3], tables[4], tables[7], tables[8]))
+    lab = torch.from_numpy(np.asarray(tables[5], np.int64)).to(cuda_device)
+    cat = torch.from_numpy(np.asarray(tables[6], np.int32)).to(cuda_device)
+    valid = torch.ones(R, dtype=torch.bool, device=cuda_device)
+    init = torch.from_numpy(np.asarray(tables[9], np.float32)).to(cuda_device)
+    kw = dict(num_samples=tables[10], haploid=True, max_iter=5, min_abs=0.01,
+              min_frac=0.001)
+    em_cuda.reset_launches()
+    with pytest.raises(ValueError, match="dtype"):
+        em_cuda.em_train(rep, eff, inf, p1, p2, lab, cat, wi.double(), wo,
+                         valid, init, n_shards=1, **kw)
+    with pytest.raises(ValueError, match="multiple of n_shards"):
+        em_cuda.em_train(rep, eff, inf, p1, p2, lab, cat, wi, wo, valid,
+                         init, n_shards=R + 1, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        em_cuda.window_posteriors(
+            torch.zeros((1, 4, 2), device=cuda_device),
+            torch.zeros((1, 4), device=cuda_device),
+            torch.zeros((1, 4), device=cuda_device),
+            torch.zeros((1, 4), dtype=torch.int32, device=cuda_device),
+            torch.ones((1, 4), dtype=torch.bool, device=cuda_device),
+            torch.zeros((1, 2, 2), device=cuda_device), 1)
+    assert not any(em_cuda.launches.values())

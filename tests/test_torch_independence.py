@@ -1,9 +1,10 @@
 """The port stands alone: it imports nothing of JAX or of the JAX package.
 
-(a) No ``.py`` under ``longtr_tpu_torch/``, nor ``chip_smoke.py``, nor
-    tests/test_torch_cuda.py imports, at module level or inside a function,
-    ``jax``, ``longtr_tpu`` (or a module of it), ``__graft_entry__``,
-    ``benchmarks`` or tests/synth.py (read from the source's syntax tree).
+(a) No ``.py`` under ``longtr_tpu_torch/``, nor ``chip_smoke.py``,
+    tests/test_torch_cuda.py or tests/_torch_cases.py, imports, at module
+    level or inside a function, ``jax``, ``longtr_tpu`` (or a module of
+    it), ``__graft_entry__``, ``benchmarks`` or tests/synth.py (read from
+    the source's syntax tree).
 (b) In a fresh interpreter whose import system refuses ``jax`` and
     ``longtr_tpu*`` (a meta-path finder installed at start-up, which the
     ``--workers`` children inherit through ``PYTHONPATH``), every module of
@@ -34,7 +35,8 @@ def _sources():
     for dirpath, _dirs, files in os.walk(PORT):
         out += [os.path.relpath(os.path.join(dirpath, f), REPO)
                 for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py", "tests/test_torch_cuda.py"]
+    return sorted(out) + ["chip_smoke.py", "tests/test_torch_cuda.py",
+                          "tests/_torch_cases.py"]
 
 
 def _imported(tree):

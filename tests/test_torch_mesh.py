@@ -15,6 +15,9 @@ counterpart of the JAX package's eight virtual CPU devices
 * ``batched_posteriors`` over a mesh equals the meshless call bit for bit.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,9 @@ from longtr_tpu_torch.ops.posterior import batched_posteriors
 from longtr_tpu_torch.parallel import mesh as port_mesh
 from longtr_tpu_torch.parallel.mesh import Mesh
 from longtr_tpu_torch.pipeline.seq_genotyper import _gather
+
+sys.path.insert(0, os.path.dirname(__file__))
+from _torch_cases import em_case, simulate_reads  # noqa: E402
 
 
 def cpu_mesh(n):
@@ -113,39 +119,6 @@ def test_gather_mixed_chunks():
 # ---------------------------------------------------------------------------
 # EM stutter training on the mesh
 # ---------------------------------------------------------------------------
-
-def simulate_reads(rng, model, allele_pairs, reads_per_sample):
-    """Per-sample read bp-diffs from diploid genotypes + stutter (the
-    simulation of tests/test_em_stutter.py, with its own generator)."""
-    diffs = np.arange(-30, 31)
-    pmf = np.exp(model.log_pmf_table(diffs))
-    pmf /= pmf.sum()
-    out = []
-    for a, b in allele_pairs:
-        out.append([int((a if rng.random() < 0.5 else b)
-                        + rng.choice(diffs, p=pmf))
-                    for _ in range(reads_per_sample)])
-    return out
-
-
-def em_case(name):
-    rng = np.random.default_rng({"diploid": 5, "haploid": 6,
-                                 "max_iter": 7}[name])
-    if name == "haploid":
-        truth = StutterModel(0.9, 0.08, 0.10, 0.85, 0.015, 0.015, "NN")
-        pairs = [(0, 0), (4, 4), (-4, -4), (8, 8), (2, 2)] * 6
-    else:
-        truth = StutterModel(0.9, 0.10, 0.12, 0.85, 0.015, 0.015, "NN")
-        pairs = [(0, 0), (0, 4), (4, 4), (0, -4), (-4, 4), (4, 8), (1, 4)] * 5
-    num_bps = simulate_reads(rng, truth, pairs, 23)
-    # phased reads: per-read haplotype log-weights, as --snp-vcf gives them
-    u = [rng.uniform(0.05, 0.95, len(s)) for s in num_bps]
-    p1 = [np.log(x).tolist() for x in u]
-    p2 = [np.log1p(-x).tolist() for x in u]
-    em = EMStutterGenotyper(name == "haploid", "NN", num_bps, p1, p2,
-                            [f"S{i}" for i in range(len(pairs))])
-    return em.mesh_inputs(), (3 if name == "max_iter" else 100)
-
 
 @pytest.mark.parametrize("name", ["diploid", "haploid", "max_iter"])
 def test_em_train_sharded_matches_jax(name):

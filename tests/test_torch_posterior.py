@@ -7,6 +7,9 @@ atol 5e-3 where the oracle is above -50, per-sample totals within rtol
 give each locus its own result and the same bits on every run.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -14,24 +17,13 @@ import torch
 from longtr_tpu.ops import posterior as jax_post
 from longtr_tpu_torch.ops import posterior as port
 
+sys.path.insert(0, os.path.dirname(__file__))
+from _torch_cases import random_case  # noqa: E402
+
 CASES = {"diploid_unphased": dict(R=40, A=5, S=3),
          "diploid_phased": dict(R=60, A=4, S=4, phased=True),
          "haploid": dict(R=30, A=6, S=2, haploid=True),
          "single_allele": dict(R=10, A=1, S=2)}
-
-
-def random_case(rng, R=40, A=5, S=3, haploid=False, phased=False):
-    LL = -rng.exponential(20, size=(R, A))
-    LL[rng.random((R, A)) < 0.05] = -900      # exercise the -600 clamp
-    if phased:
-        p1 = np.where(rng.random(R) < 0.5, -1e-6, -1000.0)
-        p2 = np.where(p1 == -1e-6, -1000.0, -1e-6)
-    else:
-        p1 = np.zeros(R)
-        p2 = np.zeros(R)
-    labels = rng.integers(0, S, size=R).astype(np.int32)
-    return dict(log_aln_probs=LL, log_p1=p1, log_p2=p2, sample_label=labels,
-                num_samples=S, haploid=haploid)
 
 
 def _close(got_P, got_tot, want_P, want_tot):
