@@ -61,13 +61,21 @@ Phases, one line or more each:
    row kernel; a second mode-B dryrun sends its rows to the block kernel.
    The device-posterior run takes the window posteriors kernel.  The
    mode-B runs print the Haplotype build (where the reference builds its
-   tables) and Mode B dispatch seconds of both runs.
+   tables) and Mode B dispatch seconds of both runs.  The window
+   posteriors (J3) on real windows: the 512-STR catalog once more with
+   LONGTR_DEVICE_POSTERIOR=1 must give the VCF body of the runs without
+   it; it prints the loci a window, the launches (one a window), each
+   window's device time (torch.profiler, on the window's recorded inputs)
+   and the time of the host float64 posteriors that the kernel replaces
+   (timed in a run without the variable).
 4. mesh    — a mesh of four shards on the one card (4 x cuda:0): the
    sharded pair-HMM at phase 2's 192 bp and 8 kb batches, through K1's
    variant for the width and through each of K2's two kernels, equals the
    single-device kernels (tolerance 0) and launched once a shard; the EM
    train kernel (J4) at a realistic locus (R = 2000 reads, A = 12
-   alleles, S = 3), on a mesh of 1 and of 4 shards of the card, equals the
+   alleles, S = 3), on a mesh of 1 and of 4 shards of the card (the branch
+   that keeps each read's terms in shared memory, whose name and cluster
+   barriers an iteration it prints), equals the
    plain loop on CPU shards and on the card in iterations and convergence,
    parameters and posterior probabilities within 1e-5 (its log-posterior
    and total differences printed beside the plain loop's own on the card),
@@ -581,24 +589,6 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
             "wide_shape": wide_shape}
 
 
-def realistic_em_locus():
-    """A factory of the EM trainer of one locus at a realistic size: 2000
-    reads of 3 diploid samples over 12 distinct length differences of a
-    dinucleotide repeat (in-frame and out-of-frame), drawn from a seed."""
-    import numpy as np
-    from longtr_tpu_torch.models.em import EMStutterGenotyper
-    rng = np.random.default_rng(7)
-    lengths = np.array([-8, -6, -4, -3, -2, -1, 0, 1, 2, 4, 6, 8])
-    num_bps = []
-    for (a, b), n in zip(((-4, 0), (0, 4), (2, 6)), (667, 667, 666)):
-        w = np.exp(-np.abs(lengths - a)) + np.exp(-np.abs(lengths - b))
-        num_bps.append(rng.choice(lengths, n, p=w / w.sum()).tolist())
-    zeros = [[0.0] * len(x) for x in num_bps]
-    names = ["S1", "S2", "S3"]
-    return lambda: EMStutterGenotyper(False, "NN", num_bps, zeros, zeros,
-                                      names)
-
-
 def posterior_and_em_bounds(R, A, S, n_iter):
     """The bounds of the two device programs at a locus of R reads, A
     alleles and S samples: J3's (ms, what bounds it, bytes) for one
@@ -701,7 +691,7 @@ def em_kernel_phase(dev, smi, mesh):
     from longtr_tpu_torch.ops import em_cuda
     from longtr_tpu_torch.ops import posterior as post
     from _torch_cases import (assert_posteriors_close, plain_em_train,
-                              posterior_window)
+                              posterior_window, realistic_em_locus)
 
     def ev_ms(fn, reps):
         fn()
@@ -760,8 +750,13 @@ def em_kernel_phase(dev, smi, mesh):
                  f"than {limit:.3g} ({EM_LOGPOST_SLACK} x max(1, "
                  f"{e_plain[3]:.3g}), the plain loop on the card's)")
         em_err = max(em_err, e_kp[2])
+        padded = pm.em_tables(*tables[:9], n)
+        branch = em_cuda.em_branch(
+            A, S, n, em_cuda.em_layout(padded[5], padded[9], n, S), dev)
         say("mesh", f"em_train_sharded at R=2000 A=12 S=3 on {n} shard(s) "
-            "of the card: one em_train_kernel launch a train, two launches "
+            f"of the card: branch {branch} ({em_cuda.BARRIERS[branch]} "
+            "cluster barriers an iteration); one em_train_kernel launch a "
+            "train, two launches "
             f"bit-identical; (converged, n_iter) = ({on_card[0]}, "
             f"{on_card[2]}) as on CPU shards and the plain loop on the card; "
             f"against CPU shards parameters within {e_cpu[0]:.3g}, posterior "
@@ -792,13 +787,16 @@ def em_kernel_phase(dev, smi, mesh):
     # times: the kernel on device-resident tables (CUDA events and the
     # profiler's device time), the plain loop on the card, the host EM and
     # em_train_sharded's wall (copies in, the launch, the one read back)
+    padded = pm.em_tables(*tables[:9], 1)
     g4 = [torch.from_numpy(x).to(dev) for x in (
-        *pm.em_tables(*tables[:9], 1), np.asarray(tables[9], np.float32))]
+        *padded, np.asarray(tables[9], np.float32))]
+    layout = em_cuda.em_layout(padded[5], padded[9], 1, S)
 
     def em_call():
         return em_cuda.em_train(*g4, n_shards=1, num_samples=S,
                                 haploid=False, max_iter=conv[0],
-                                min_abs=conv[1], min_frac=conv[2])
+                                min_abs=conv[1], min_frac=conv[2],
+                                layout=layout)
 
     j4_ms = ev_ms(em_call, 10)
     j4_prof = profiled_us(em_call, "em_train_kernel", reps=10)
@@ -897,9 +895,89 @@ def em_kernel_phase(dev, smi, mesh):
         "em_train": {
             "ms": j4_ms, "plain_ms": j4_plain_ms, "bound_ms": j4_bound,
             "bound_by": j4_by, "profiler_ms": ms_or_none(j4_prof[0]),
-            "max_abs_err": em_err,
+            "max_abs_err": em_err, "branch": branch,
+            "barriers_per_iteration": em_cuda.BARRIERS[branch],
             "shape": f"R={R} A={A} S={S}, {one[2]} iterations"}}
     return results
+
+
+def j3_window_phase(smi, run, body, str_fx, str_single, tmp):
+    """The window posteriors (J3) on real windows: the 512-STR catalog once
+    with LONGTR_DEVICE_POSTERIOR=1, its VCF body byte-identical to the run
+    without it (phase 3's on the card, and a second one here that times
+    the host float64 posteriors the kernel replaces: the first
+    _calc_posteriors of each genotype_finalize that has no device
+    posterior).  Returns the loci a window, the launches, each window's
+    device time (torch.profiler, on the window's recorded inputs) and the
+    host time, for the kernels line."""
+    from longtr_tpu_torch.ops import em_cuda
+    from longtr_tpu_torch.pipeline.seq_genotyper import SeqStutterGenotyper
+    sg = SeqStutterGenotyper
+    host = [0, 0.0]
+    finalize, calc = sg.genotype_finalize, sg._calc_posteriors
+
+    def timed_finalize(self, pool_scores=None, initial_posterior=None):
+        self._smoke_host_first = initial_posterior is None
+        return finalize(self, pool_scores, initial_posterior)
+
+    def timed_calc(self):
+        if not getattr(self, "_smoke_host_first", False):
+            return calc(self)
+        self._smoke_host_first = False
+        t = time.perf_counter()
+        calc(self)
+        host[0] += 1
+        host[1] += time.perf_counter() - t
+
+    sg.genotype_finalize, sg._calc_posteriors = timed_finalize, timed_calc
+    try:
+        host_out, host_dt, _m = run("STR host posterior", str_fx, [], None,
+                                    tmp)
+    finally:
+        sg.genotype_finalize, sg._calc_posteriors = finalize, calc
+    windows = []
+    real = em_cuda.window_posteriors
+
+    def recording(*args):
+        windows.append(args)
+        return real(*args)
+
+    em_cuda.window_posteriors = recording
+    os.environ["LONGTR_DEVICE_POSTERIOR"] = "1"
+    em_cuda.reset_launches()         # the counts to 0 just before the run
+    try:
+        dev_out, dev_dt, m = run("STR device posterior", str_fx, [], None,
+                                 tmp)
+    finally:
+        em_cuda.window_posteriors = real
+        del os.environ["LONGTR_DEVICE_POSTERIOR"]
+    launches = em_cuda.launches["window_posteriors"]
+    want = body(str_single)
+    if body(host_out) != want or body(dev_out) != want:
+        fail("STR device posterior: VCF body differs from the run without "
+             "LONGTR_DEVICE_POSTERIOR")
+    if launches != len(windows) or not launches:
+        fail(f"STR device posterior: {launches} window_posteriors launches "
+             f"for {len(windows)} windows")
+    loci = [int(w[0].shape[0]) for w in windows]
+    shapes = [tuple(int(x) for x in w[0].shape) + (int(w[6]),)
+              for w in windows]
+    prof = [profiled_us(lambda w=w: real(*w), "window_posteriors_kernel",
+                        reps=10)[0] for w in windows]
+    dev_s = m["stage_seconds"].get("Device posterior", 0.0)
+    say("e2e", f"STR device posterior on {smi}: {m['loci_processed']} loci, "
+        f"{launches} window_posteriors launches, one a window of {loci} "
+        f"loci ((L, R_max, A_max, S_max) {shapes}); device time a window "
+        f"{[fmt_ms(ms_or_none(u)) for u in prof]} (torch.profiler); the "
+        f"Device posterior stage {dev_s:.4f} s; the host float64 posteriors "
+        f"it replaces {host[1] * 1e3:.3f} ms over {host[0]} loci "
+        f"({host[1] * 1e3 / max(1, len(windows)):.3f} ms a window); VCF "
+        f"body byte-identical to both runs without it ({dev_dt:.2f} s, "
+        f"host {host_dt:.2f} s)")
+    return {"window_loci": loci, "window_launches": launches,
+            "window_profiler_ms": [ms_or_none(u) for u in prof],
+            "host_posterior_ms": host[1] * 1e3,
+            "host_posterior_loci": host[0]}
 
 
 def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
@@ -1664,6 +1742,8 @@ def smoke(tmp, dev, smi):
             f"{rst.get('Haplotype build', 0.0):.3f}, Mode B dispatch "
             f"{rst.get('Mode B dispatch', 0.0):.3f}")
 
+    j3_window = j3_window_phase(smi, run, body, str_fx, results["STR"][0],
+                                tmp)
     say("e2e", f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     # ---- 4. mesh ---------------------------------------------------------
@@ -1709,6 +1789,7 @@ def smoke(tmp, dev, smi):
     h1_src = "longtr_tpu_torch/csrc/mode_b_artifacts.cu"
     j2_src = "longtr_tpu_torch/csrc/mode_b.cu"
     em_src = "longtr_tpu_torch/csrc/em.cu"
+    em["window_posteriors"].update(j3_window)
     mb.update(em)
     for name, run_tag, replaces, source in (
             ("mode_b_artifacts", "STR mode B", h1, h1_src),
@@ -1725,8 +1806,9 @@ def smoke(tmp, dev, smi):
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": None,
                         "shape": k["shape"],
-                        **({"profiler_ms": k["profiler_ms"]}
-                           if "profiler_ms" in k else {})})
+                        **{x: k[x] for x in (
+                            "profiler_ms", "branch", "barriers_per_iteration",
+                            *j3_window) if x in k}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

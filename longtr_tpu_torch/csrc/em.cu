@@ -30,32 +30,46 @@
 // thread-block cluster of EM_CTAS blocks runs every iteration of one train
 // (em_stutter_genotyper.cpp:170-226).  Before the first, block 0 sorts the
 // valid reads by (shard, sample) and cuts each (shard, sample) into chunks
-// of `chunk` reads.  An iteration's phases, separated by cluster barriers:
-//   B  the first E-step half: a block stages the operands of a few chunks
-//      in shared memory (the stutter PMF computed from the diff tables),
-//      then a thread a (chunk, a1, a2) sums the chunk's diplotype terms in
-//      read order;
-//   C  a thread an (s, a1, a2) adds the chunks of each shard in order, then
-//      the shards in shard order (mesh._psum's order), then the prior;
-//   D  a warp a sample: the logsumexp of its A*A entries (totals);
-//   F  a block stages the normalized posteriors (when they fit) and the PMF
-//      rows of its items in shared memory; a thread a (read, allele): the
-//      second E-step half, the read's phase posteriors f0, f1 and lin =
-//      exp(f0) + exp(f1); a thread a (s, a): the logsumexps over one
-//      allele axis that the prior update takes;
-//   G  a warp a (shard, 32 consecutive (read, allele) entries): the seven
-//      category sums of lin (warp_sum); a warp an allele: the prior
-//      update's logsumexps over the samples and their logaddexp;
-//   H  block 0: a warp a statistic adds the chunks of each shard (lane-
-//      strided, then warp_sum) and the shards in shard order; thread 0
-//      takes the closed-form M step, the new priors and the convergence
-//      test (mesh.py:_em_train's rules) and writes the state the next
-//      iteration reads.
-// The host reads the result once, after the loop.  The partial sums of
-// each shard are formed apart and added in shard order, so the result
-// follows the mesh's shard count, as the plain version's does, and not
-// where the shards lie, nor the cluster's size.  No float atomics: every
-// sum has one order, so two launches on the same inputs give the same bits.
+// of `chunk` reads; block r owns chunks r nch / EM_CTAS .. (r + 1) nch /
+// EM_CTAS - 1 of the nch for the whole train.  Every block keeps its own
+// copy of the state (parameters, PMF constants, priors, LL, stop flag) in
+// shared memory and updates it alike.  An iteration:
+//   B  a block stages its reads' operands (the stutter PMF from the diff
+//      tables), forms each read's A*A diplotype terms, sums each chunk's in
+//      read order, then its chunks of one (shard, sample) in order (a
+//      segment);
+//      -- cluster barrier 1 --
+//   C  P = each (shard, sample)'s segments added in block order, the shards
+//      in shard order (mesh._psum's), plus the prior; the totals (a warp a
+//      sample's logsumexp), the normalized posteriors, the logsumexps over
+//      one allele axis and the prior update's logaddexps;
+//   F  a thread an owned (read, allele): the read's phase posteriors f0, f1
+//      from its terms and lin = exp(f0) + exp(f1);
+//   G  a warp an owned chunk: its seven category sums of lin;
+//      -- cluster barrier 2 --
+//   H  every block: a warp a statistic adds each shard's chunks (lane-
+//      strided, then warp_sum) and the shards in shard order; thread 0 takes
+//      the closed-form M step, the new priors and the convergence test
+//      (mesh.py:_em_train's rules) into the block's state.
+// The host picks one of two branches from the shape (em_train_smem_bytes
+// against the card's shared memory):
+//   terms kept: a block keeps its reads' terms in shared memory from B to
+//     F; C's segments and G's statistics are read from the blocks' shared
+//     memory over DSMEM, and every block forms all of C itself.  Two
+//     cluster barriers an iteration.
+//   terms recomputed, where they or the posteriors do not fit (a cohort of
+//     hundreds of samples): B writes the segments to device memory, block r
+//     forms C for samples r, r + EM_CTAS, ... into device memory behind a
+//     third barrier, and F restages its chunks a group at a time and forms
+//     the terms again.  Three cluster barriers an iteration.
+// Both do the same arithmetic in the same order and give the same bits.
+// Besides, one barrier follows the set-up and one precedes the exit: no
+// block leaves while another reads its shared memory.  The host reads the
+// result once, after the loop.  Each shard's partial sums are formed apart
+// and added in shard order, so the result follows the mesh's shard count,
+// as the plain version's does, and not where the shards lie.  No float
+// atomics: every sum has one order, so two launches on the same inputs
+// give the same bits.
 //
 // Both compute in float32, like the reference: torch's logaddexp (equal
 // infinities return themselves, where m + log1p(exp(-|a-b|)) would give
@@ -72,14 +86,13 @@
 // What bounds them: their work is small (J4 at R=2000 reads, A=12 alleles,
 // S=3 samples: ~5 R A^2 logaddexps an iteration, the tables ~0.5 MB), so
 // the plain versions were launch-bound.  One launch removes that; what is
-// left is latency: J3 gives a locus one cluster, and J4 runs ~7 iterations of
-// six dependent phases on the cluster's EM_CTAS SMs, reading what another
-// block wrote from L2 (__ldcg: a block's L1 does not see the others'
-// stores).  So no thread walks a chain of dependent loads: the operands a
-// loop reads are staged in shared memory by parallel loads first, and a
-// reduction is a warp's lanes, each over a strided share, then a butterfly
-// (warp_sum).  A design in which a thread walked a sum reading L2 one
-// value after another was several times slower on an H100.
+// left is latency: J3 gives a locus one cluster, and J4 runs ~7 iterations
+// of dependent phases on the cluster's EM_CTAS SMs.  So no thread walks a
+// chain of dependent loads: the operands a loop reads are staged in shared
+// memory by parallel loads first, and a reduction is a warp's lanes, each
+// over a strided share, then a butterfly (warp_sum).  A design in which a
+// thread walked a sum reading L2 one value after another was several times
+// slower on an H100.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -96,10 +109,9 @@ constexpr int SORT_BATCH = 4096;      // keys a block stages at once (sort)
 constexpr int EM_CTAS = 16;           // EM train: blocks of its cluster,
                                       // Hopper's largest (non-portable)
 constexpr int EM_THREADS = 512;
-constexpr int EM_MAX_GROUP = 16;      // chunks a block stages at once (B)
-constexpr int EM_PN_SMEM = 40960;     // floats of S*A*A staged in F (160 KB)
-constexpr int EM_STATE = 16;          // params (6), PMF constants (7)
-constexpr int EM_ISTATE = 4;          // done
+constexpr int EM_MAX_GROUP = 16;      // recomputed: a group's reads, in
+                                      // chunks of its size
+constexpr int EM_P_FLOATS = 16384;    // recomputed: a batch of samples' P
 
 // torch.clamp(x, min=-600): NaN stays NaN.
 __device__ __forceinline__ float clamp_ll(float x) {
@@ -296,48 +308,107 @@ window_posteriors_kernel(const float* __restrict__ LL,
 }
 
 // The EM train's device-memory workspace, in floats (the int regions are
-// read as int, the double regions, at even offsets, as double).  nch_max
-// bounds the read chunks of phase B: each (shard, sample) of c reads takes
-// ceil(c / chunk) <= c / chunk + 1 of them; ncs is the 32-entry chunks of
-// a shard's (read, allele) entries in phase G.
+// read as int, the double region, at an even offset, as double): the sorted
+// reads and the chunk table, which block 0 writes once; with the terms
+// recomputed, also each chunk's (then each segment's) sums of phase B and
+// the per-(sample, allele) logsumexps of phase C.  nch_max bounds the
+// chunks: each (shard, sample) of c reads takes ceil(c / chunk) <= c /
+// chunk + 1 of them.
 struct EmLayout {
-  int nkeys, nch_max, ncs;
-  long order, chunk_base, ch_lo, ch_hi, part, P, totals, lin, rowl, coll,
-      stat, comb, priors, state, istate, total;
+  int nkeys, nch_max;
+  long order, chunk_base, ch_lo, ch_hi, ch_key, part, rowl, coll, total;
 };
 
-__host__ __device__ EmLayout em_layout(int R, int A, int S, int n,
-                                       int chunk) {
+__host__ __device__ EmLayout em_layout(int R, int A, int S, int n, int chunk,
+                                       bool keep) {
   EmLayout w;
   w.nkeys = n * S;
   w.nch_max = (R + chunk - 1) / chunk + w.nkeys;
-  w.ncs = (R / n * A + 31) / 32;
   long o = 0;
   w.order = o;       o += R;
   w.chunk_base = o;  o += w.nkeys + 1;
   w.ch_lo = o;       o += w.nch_max;
   w.ch_hi = o;       o += w.nch_max;
+  w.ch_key = o;      o += w.nch_max;
   o += o & 1;
-  w.part = o;        o += 2L * w.nch_max * A * A;
-  w.P = o;           o += (long)S * A * A;
-  w.totals = o;      o += S;
-  w.lin = o;         o += (long)R * A;
-  w.rowl = o;        o += (long)S * A;
-  w.coll = o;        o += (long)S * A;
-  o += o & 1;
-  w.stat = o;        o += 2L * n * w.ncs * 7;
-  w.comb = o;        o += A;
-  w.priors = o;      o += A;
-  w.state = o;       o += EM_STATE;
-  w.istate = o;      o += EM_ISTATE;
+  w.part = o;        o += keep ? 0 : 2L * w.nch_max * A * A;
+  w.rowl = o;        o += keep ? 0 : (long)S * A;
+  w.coll = o;        o += keep ? 0 : (long)S * A;
   w.total = o;
   return w;
 }
 
-// Chunks a block of EM_THREADS stages at once in phase B.
+// Chunks of reads a group stages at once when the terms are recomputed.
 __host__ __device__ inline int em_group(int A) {
   const int g = EM_THREADS / (A * A);
   return g < 1 ? 1 : (g > EM_MAX_GROUP ? EM_MAX_GROUP : g);
+}
+
+// A block's shared memory, byte offsets of its regions.  M is the most
+// chunks a block owns and Qr the most reads, which the host counts from the
+// reads' samples (em_cuda.em_layout); Q the reads a block stages at once:
+// all its reads when the terms are kept, a group's otherwise; SB the
+// samples of phase C a block takes at once when they are recomputed.  part (the
+// chunks' sums, then the segments') and stat (the chunks' seven sums) are
+// what the other blocks read over DSMEM.  The set-up's sort (block 0) uses
+// the same bytes before any of them.
+struct EmSmem {
+  int Q, SB;
+  long part, stat, cb, kr, fst, c_lo, c_hi, c_key, rid, smp, lp1, lp2, rep, eff,
+      inf, cat, win, wout, a, b, lin, T, P, tot, rowl, coll, comb, pri, st,
+      state, total;
+};
+
+// The next region of `bytes`, 16-aligned, at offset o.
+__host__ __device__ inline long take(long& o, long bytes) {
+  const long at = o;
+  o += (bytes + 15) & ~15L;
+  return at;
+}
+
+__host__ __device__ EmSmem em_smem(int A, int S, int n, int chunk, int M,
+                                   int Qr, bool keep) {
+  EmSmem m;
+  m.Q = keep ? Qr : em_group(A) * chunk;
+  const int per_block = (S + EM_CTAS - 1) / EM_CTAS;
+  const int fit = EM_P_FLOATS / (A * A) < 1 ? 1 : EM_P_FLOATS / (A * A);
+  m.SB = per_block < fit ? per_block : fit;
+  const long AA = (long)A * A, QA = (long)m.Q * A, f = sizeof(float);
+  const long i = sizeof(int), d = sizeof(double);
+  long o = 0;
+  m.part = take(o, keep ? M * AA * d : 0);
+  m.stat = take(o, M * 7L * d);
+  m.cb = take(o, ((long)n * S + 1) * i);
+  m.kr = take(o, 2L * n * S * i);
+  m.fst = take(o, (EM_CTAS + 1L) * i);
+  m.c_lo = take(o, M * i);
+  m.c_hi = take(o, M * i);
+  m.c_key = take(o, M * i);
+  m.rid = take(o, m.Q * i);
+  m.smp = take(o, m.Q * i);
+  m.lp1 = take(o, m.Q * f);
+  m.lp2 = take(o, m.Q * f);
+  m.rep = take(o, QA * i);
+  m.eff = take(o, QA * i);
+  m.inf = take(o, QA);
+  m.cat = take(o, QA);
+  m.win = take(o, QA * f);
+  m.wout = take(o, QA * f);
+  m.a = take(o, QA * f);
+  m.b = take(o, QA * f);
+  m.lin = take(o, QA * f);
+  m.T = take(o, keep ? m.Q * AA * f : 0);
+  m.P = take(o, (keep ? S : m.SB) * AA * f);
+  m.tot = take(o, S * f);
+  m.rowl = take(o, keep ? S * A * f : 0);
+  m.coll = take(o, keep ? S * A * f : 0);
+  m.comb = take(o, A * f);
+  m.pri = take(o, A * f);
+  m.st = take(o, 8 * f);
+  m.state = take(o, 16 * f);
+  const long sort = ((((long)n * S * 2 + 1 + 3) & ~3L) + SORT_BATCH) * i;
+  m.total = o > sort ? o : sort;
+  return m;
 }
 
 // The PMF constants of mesh.py:_em_pmf_from_params, in its order:
@@ -358,22 +429,18 @@ __device__ void pmf_consts(const float* p, float* c) {
   c[6] = logf((((1.0f - p[1]) - p[2]) - p[4]) - p[5]);
 }
 
-// The stutter PMF of one (read, allele), clamped at -600.
-struct Pmf {
-  float c[7];
-  const int32_t* rep;
-  const int32_t* eff;
-  const uint8_t* in_frame;
-  __device__ float operator()(int i) const {
-    const int e = __ldg(eff + i), d = __ldg(rep + i);
-    const float out_val = e < 0 ? c[0] + c[2] * (float)(-e - 1)
-                                : c[1] + c[2] * (float)(e - 1);
-    const float in_val = d == 0 ? c[6]
-                         : d < 0 ? c[3] + c[5] * (float)(-d - 1)
-                                 : c[4] + c[5] * (float)(d - 1);
-    return clamp_ll(__ldg(in_frame + i) ? in_val : out_val);
-  }
-};
+// The stutter PMF of one (read, allele) from its repeat and effective bp
+// differences (d, e) and in-frame flag, clamped at -600; c the PMF
+// constants.
+__device__ __forceinline__ float pmf(const float* c, int d, int e,
+                                     bool in_frame) {
+  const float out_val = e < 0 ? c[0] + c[2] * (float)(-e - 1)
+                              : c[1] + c[2] * (float)(e - 1);
+  const float in_val = d == 0 ? c[6]
+                       : d < 0 ? c[3] + c[5] * (float)(-d - 1)
+                               : c[4] + c[5] * (float)(d - 1);
+  return clamp_ll(in_frame ? in_val : out_val);
+}
 
 // The closed-form M step (mesh.py:_em_mstep_params) from the seven sums
 // (in_eq, in_up, in_down, out_up, out_down, in diffs, out diffs).
@@ -399,6 +466,11 @@ __device__ void mstep(const float* st, float* p) {
   p[5] = expf(out_tot_down - log_total);
 }
 
+// state: the parameters (6), the PMF constants (7), the LL, the stop flag,
+// and whether the host's layout bounds held.
+constexpr int ST_PMF = 6, ST_LL = 13, ST_DONE = 14, ST_BAD = 15;
+
+template <bool KEEP>
 __global__ void __launch_bounds__(EM_THREADS)
 em_train_kernel(const int32_t* __restrict__ rep,
                 const int32_t* __restrict__ eff,
@@ -411,284 +483,480 @@ em_train_kernel(const int32_t* __restrict__ rep,
                 const float* __restrict__ w_out,
                 const float* __restrict__ init_priors, int R, int A, int S,
                 int n, int haploid, int max_iter, float min_abs,
-                float min_frac, float log_half, int chunk,
+                float min_frac, float log_half, int chunk, int M, int Qr,
                 float* __restrict__ ws, float* __restrict__ out) {
-  extern __shared__ __align__(16) int em_smem[];
+  extern __shared__ __align__(16) unsigned char em_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, T = blockDim.x, lane = tid & 31;
-  const int CL = gridDim.x;                        // blocks of the cluster
-  const int g = rank * T + tid, G = CL * T;        // thread of the cluster
-  const int gw = g >> 5, GW = G >> 5;              // warp of the cluster
-  const EmLayout w = em_layout(R, A, S, n, chunk);
-  const int AA = A * A, Rs = R / n, RA = R * A;
+  const int wid = tid >> 5, NW = T >> 5;
+  const int CL = EM_CTAS;                          // blocks of the cluster
+  const EmLayout w = em_layout(R, A, S, n, chunk, KEEP);
+  const EmSmem sm = em_smem(A, S, n, chunk, M, Qr, KEEP);
+  const int AA = A * A, Rs = R / n, nkeys = w.nkeys;
   int* order = (int*)(ws + w.order);
   int* chunk_base = (int*)(ws + w.chunk_base);
   int* ch_lo = (int*)(ws + w.ch_lo);
   int* ch_hi = (int*)(ws + w.ch_hi);
-  double* part = (double*)(ws + w.part);
-  float* P = ws + w.P;
-  float* totals = ws + w.totals;
-  float* lin = ws + w.lin;
-  float* rowl = ws + w.rowl;
-  float* coll = ws + w.coll;
-  double* stat = (double*)(ws + w.stat);
-  float* comb = ws + w.comb;
-  float* priors = ws + w.priors;
-  float* state = ws + w.state;
-  int* istate = (int*)(ws + w.istate);
-  float* sm = (float*)em_smem;
-  auto sync = [&] {
-    __threadfence();
-    cluster.sync();
-  };
+  int* ch_key = (int*)(ws + w.ch_key);
+  double* part_g = (double*)(ws + w.part);
+  float* rowl_g = ws + w.rowl;
+  float* coll_g = ws + w.coll;
+  float* out_tot = out + 8;
+  float* out_P = out + 8 + S;
+  double* part_s = (double*)(em_raw + sm.part);
+  double* stat_s = (double*)(em_raw + sm.stat);
+  int* cb_s = (int*)(em_raw + sm.cb);
+  int* fst = (int*)(em_raw + sm.fst);
+  int* kr = (int*)(em_raw + sm.kr);
+  int* c_lo = (int*)(em_raw + sm.c_lo);
+  int* c_hi = (int*)(em_raw + sm.c_hi);
+  int* c_key = (int*)(em_raw + sm.c_key);
+  int* rid = (int*)(em_raw + sm.rid);
+  int* smp = (int*)(em_raw + sm.smp);
+  float* lp1_s = (float*)(em_raw + sm.lp1);
+  float* lp2_s = (float*)(em_raw + sm.lp2);
+  int* rep_s = (int*)(em_raw + sm.rep);
+  int* eff_s = (int*)(em_raw + sm.eff);
+  uint8_t* inf_s = em_raw + sm.inf;
+  uint8_t* cat_s = em_raw + sm.cat;
+  float* win_s = (float*)(em_raw + sm.win);
+  float* wout_s = (float*)(em_raw + sm.wout);
+  float* a_s = (float*)(em_raw + sm.a);
+  float* b_s = (float*)(em_raw + sm.b);
+  float* lin_s = (float*)(em_raw + sm.lin);
+  float* T_s = (float*)(em_raw + sm.T);
+  float* P_s = (float*)(em_raw + sm.P);
+  float* tot_s = (float*)(em_raw + sm.tot);
+  float* rowl_s = (float*)(em_raw + sm.rowl);
+  float* coll_s = (float*)(em_raw + sm.coll);
+  float* comb_s = (float*)(em_raw + sm.comb);
+  float* pri = (float*)(em_raw + sm.pri);
+  float* st = (float*)(em_raw + sm.st);
+  float* state = (float*)(em_raw + sm.state);
 
-  // Set-up, block 0: the valid reads sorted by (shard, sample), the read
-  // chunks of each (shard, sample), the initial state.
-  float LL = -INFINITY;         // thread 0 of block 0 keeps the LL
-  int converged = 0;
+  // Set-up, block 0: the valid reads sorted by (shard, sample), the chunks
+  // of each (shard, sample), into device memory; one cluster barrier.
   if (rank == 0) {
-    int* start = em_smem;
+    int* start = (int*)em_raw;
     block_sort([&](int r) {
                  const int64_t s = label[r];
                  return valid[r] && s >= 0 && s < S ? (r / Rs) * S + (int)s
                                                     : -1;
                },
-               R, w.nkeys, start, em_smem + w.nkeys + 1,
-               em_smem + ((2 * w.nkeys + 1 + 3) & ~3), order);
+               R, nkeys, start, start + nkeys + 1,
+               start + ((2 * nkeys + 1 + 3) & ~3), order);
     if (tid == 0) {
       int c = 0;
-      for (int k = 0; k < w.nkeys; ++k) {
+      for (int k = 0; k < nkeys; ++k) {
         chunk_base[k] = c;
         for (int q = start[k]; q < start[k + 1]; q += chunk, ++c) {
           ch_lo[c] = q;
           ch_hi[c] = min(q + chunk, start[k + 1]);
+          ch_key[c] = k;
         }
       }
-      chunk_base[w.nkeys] = c;
-      const float init[6] = {0.9f, 0.1f, 0.1f, 0.8f, 0.01f, 0.01f};
-      for (int i = 0; i < 6; ++i) state[i] = init[i];
-      pmf_consts(state, state + 6);
-      istate[0] = 0;
+      chunk_base[nkeys] = c;
     }
-    for (int a = tid; a < A; a += T) priors[a] = init_priors[a];
   }
-  sync();
+  __threadfence();
+  cluster.sync();
+  // Every block: the chunk table, its own chunks, its copy of the state.
+  for (int x = tid; x <= nkeys; x += T) cb_s[x] = __ldcg(chunk_base + x);
+  __syncthreads();
+  const int nch = cb_s[nkeys];
+  for (int r = tid; r <= CL; r += T) fst[r] = (int)((long)r * nch / CL);
+  __syncthreads();
+  // the block that owns chunk c: the last r with fst[r] <= c
+  auto owner = [&](int c) { return (int)(((long)c + 1) * CL - 1) / nch; };
+  const int f0 = fst[rank], m = fst[rank + 1] - f0;
+  // each (shard, sample)'s blocks: kr[2 key] .. kr[2 key + 1] - 1
+  for (int k = tid; k < nkeys; k += T) {
+    const int ca = cb_s[k], cb = cb_s[k + 1];
+    kr[2 * k] = ca < cb ? owner(ca) : 0;
+    kr[2 * k + 1] = ca < cb ? owner(cb - 1) + 1 : 0;
+  }
+  for (int l = tid; l < min(m, M); l += T) {
+    c_lo[l] = __ldcg(ch_lo + f0 + l);
+    c_hi[l] = __ldcg(ch_hi + f0 + l);
+    c_key[l] = __ldcg(ch_key + f0 + l);
+  }
+  for (int a = tid; a < A; a += T) pri[a] = init_priors[a];
+  // Every block checks every block's chunks and reads against the host's
+  // bounds (a thread a block), so all agree whether to train.
+  const int bad = __syncthreads_or(
+      tid < CL && (fst[tid + 1] - fst[tid] > M
+                   || (fst[tid + 1] > fst[tid]
+                       && __ldcg(ch_hi + fst[tid + 1] - 1)
+                              - __ldcg(ch_lo + fst[tid]) > Qr)));
+  if (tid == 0) {
+    const float init[6] = {0.9f, 0.1f, 0.1f, 0.8f, 0.01f, 0.01f};
+    for (int i = 0; i < 6; ++i) state[i] = init[i];
+    pmf_consts(state, state + ST_PMF);
+    state[ST_LL] = -INFINITY;
+    state[ST_DONE] = 0.0f;
+    state[ST_BAD] = bad ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+
+  int glo = 0;              // the sorted position of the staged reads' first
+  // The reads of owned chunks g0 .. g0 + ng - 1, staged: each read's index,
+  // sample and phase weights, and its tables (they stay the same through
+  // the train).  Returns the count.
+  auto stage_reads = [&](int g0, int ng) {
+    glo = c_lo[g0];
+    const int nq = c_hi[g0 + ng - 1] - glo;
+    for (int q = tid; q < nq; q += T) {
+      const int r = __ldcg(order + glo + q);
+      rid[q] = r;
+      smp[q] = (int)label[r];
+      lp1_s[q] = lp1[r];
+      lp2_s[q] = lp2[r];
+    }
+    __syncthreads();
+    for (int e = tid; e < nq * A; e += T) {
+      const int q = e / A;
+      const long x = (long)rid[q] * A + (e - q * A);
+      rep_s[e] = rep[x];
+      eff_s[e] = eff[x];
+      inf_s[e] = in_frame[x];
+      cat_s[e] = (uint8_t)cat[x];
+      win_s[e] = w_in[x];
+      wout_s[e] = w_out[x];
+    }
+    return nq;
+  };
+  // The staged reads' operands of this iteration's terms:
+  //   a = (PMF + lp1) + log 1/2,  b = (PMF + lp2) + log 1/2.
+  auto stage_terms = [&](int nq) {
+    for (int e = tid; e < nq * A; e += T) {
+      const int q = e / A;
+      const float v = pmf(state + ST_PMF, rep_s[e], eff_s[e], inf_s[e]);
+      a_s[e] = (v + lp1_s[q]) + log_half;
+      b_s[e] = (v + lp2_s[q]) + log_half;
+    }
+  };
+  // Recomputed: the owned chunks g0 .. group_end(g0) - 1 are a group, as
+  // many as hold at most Q reads.
+  auto group_end = [&](int g0) {
+    int g1 = g0 + 1;
+    while (g1 < m && c_hi[g1] - c_lo[g0] <= sm.Q) ++g1;
+    return g1;
+  };
+  // A staged read's term (a1, a2): kept by phase B, or recomputed.
+  auto term = [&](int q, int a1, int a2) {
+    if constexpr (KEEP)
+      return T_s[q * AA + a1 * A + a2];
+    else
+      return lae(a_s[q * A + a1], b_s[q * A + a2]);
+  };
+  // Each staged chunk's sums of its reads' terms, in read order.
+  auto partials = [&](int g0, int ng, double* dst) {
+    for (int t = tid; t < ng * AA; t += T) {
+      const int l = t / AA, j = t - l * AA, a1 = j / A, a2 = j - a1 * A;
+      double acc = 0.0;
+      for (int q = c_lo[g0 + l] - glo; q < c_hi[g0 + l] - glo; ++q)
+        acc += term(q, a1, a2);
+      dst[(long)l * AA + j] = acc;
+    }
+  };
+  // The owned chunks of one (shard, sample) added in order into the first
+  // one's sums: a segment.
+  auto segments = [&](double* p) {
+    for (int t = tid; t < m * AA; t += T) {
+      const int l = t / AA, j = t - l * AA;
+      if (l > 0 && c_key[l] == c_key[l - 1]) continue;
+      double acc = p[(long)l * AA + j];
+      for (int l2 = l + 1; l2 < m && c_key[l2] == c_key[l]; ++l2)
+        acc += p[(long)l2 * AA + j];
+      p[(long)l * AA + j] = acc;
+    }
+  };
+  // Entry j of the (shard, sample) key's sum: its segments in block order,
+  // rounded once.
+  auto key_sum = [&](int key, int j) {
+    const int ca = cb_s[key];
+    double acc = 0.0;
+#pragma unroll 4
+    for (int r = kr[2 * key]; r < kr[2 * key + 1]; ++r) {
+      const int c = max(ca, fst[r]);
+      if (c >= fst[r + 1]) continue;           // a block that owns no chunk
+      if constexpr (KEEP)
+        acc += cluster.map_shared_rank(part_s, r)[(long)(c - fst[r]) * AA
+                                                  + j];
+      else
+        acc += __ldcg(part_g + (long)c * AA + j);
+    }
+    return (float)acc;
+  };
+  // P[s, j]: the shards in shard order (mesh._psum's), then the prior.
+  auto post = [&](int s, int j) {
+    float tot = 0.0f;
+    for (int k = 0; k < n; ++k) {
+      const float v = key_sum(k * S + s, j);
+      tot = k == 0 ? v : tot + v;
+    }
+    const int a1 = j / A, a2 = j - a1 * A;
+    const float pm = haploid ? (a1 == a2 ? pri[a1] : -1e30f)
+                             : pri[a1] + pri[a2];
+    return tot + pm;
+  };
+  auto Pn = [&](int s, int x) {
+    if constexpr (KEEP)
+      return P_s[s * AA + x];
+    else
+      return __ldcg(out_P + (long)s * AA + x);
+  };
+  // One warp's sample s, its P at Ps (A*A entries): the total (warp_lse),
+  // the posteriors normalized in place, and each allele's logsumexps over
+  // one allele axis into rowl[s A + a] and coll[s A + a].
+  auto sample_warp = [&](float* Ps, int s, float* rowl, float* coll) {
+    const float t = warp_lse([&](int x) { return Ps[x]; }, AA);
+    if (lane == 0) tot_s[s] = t;
+    for (int x = lane; x < AA; x += 32) Ps[x] -= t;
+    __syncwarp();
+    for (int k = lane; k < 2 * A; k += 32) {
+      if (k < A)
+        rowl[s * A + k] = lse([&](int x) { return Ps[k * A + x]; }, A);
+      else
+        coll[s * A + k - A] = lse([&](int x) { return Ps[x * A + k - A]; }, A);
+    }
+    return t;
+  };
+  // F and G on staged chunks g0 .. g0 + ng - 1: each (read, allele)'s
+  // phase posteriors f0, f1 and lin = exp(f0) + exp(f1); then a warp a
+  // chunk: its seven sums, lane-strided in float64, then warp_sum.
+  auto phase_f = [&](int g0, int ng, int nq) {
+    // item e = (q, a), stepped by T without a division
+    const int dq = T / A, da = T - dq * A;
+    for (int e = tid, q = tid / A, a = tid - q * A; e < nq * A;
+         e += T, q += dq, a += da) {
+      if (a >= A) {
+        a -= A;
+        ++q;
+      }
+      const int s = smp[q];
+      const float one_a = a_s[e], two_a = b_s[e];
+      // f0: over a2 of Pn[s, a, a2] + (one[a] - term(a, a2))
+      const float f0 = lse([&](int a2) {
+        return Pn(s, a * A + a2) + (one_a - term(q, a, a2));
+      }, A);
+      // f1: over a1 of Pn[s, a1, a] + (two[a] - term(a1, a))
+      const float f1 = lse([&](int a1) {
+        return Pn(s, a1 * A + a) + (two_a - term(q, a1, a));
+      }, A);
+      lin_s[e] = expf(f0) + expf(f1);
+    }
+    __syncthreads();
+    for (int l = wid; l < ng; l += NW) {
+      const int e0 = (c_lo[g0 + l] - glo) * A;
+      const int ne = (c_hi[g0 + l] - c_lo[g0 + l]) * A;
+      double v7[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+      for (int e = e0 + lane; e < e0 + ne; e += 32) {
+        const float v = lin_s[e];
+        const int c = cat_s[e];
+        v7[0] += c == 0 ? v : 0.0f;
+        v7[1] += c == 1 ? v : 0.0f;
+        v7[2] += c == 2 ? v : 0.0f;
+        v7[3] += c == 3 ? v : 0.0f;
+        v7[4] += c == 4 ? v : 0.0f;
+        v7[5] += v * win_s[e];
+        v7[6] += v * wout_s[e];
+      }
+#pragma unroll
+      for (int q = 0; q < 7; ++q) v7[q] = warp_sum(v7[q]);
+      if (lane < 7) {
+        double mine = v7[0];
+#pragma unroll
+        for (int q = 1; q < 7; ++q) mine = lane == q ? v7[q] : mine;
+        stat_s[(long)(g0 + l) * 7 + lane] = mine;
+      }
+    }
+  };
+
+  // Kept: every owned read staged once, for the whole train.
+  int nq_all = 0;
+  if (KEEP && m > 0 && state[ST_BAD] == 0.0f) nq_all = stage_reads(0, m);
+  __syncthreads();
 
   int it = 0;
-  while (it < max_iter && !__ldcg(istate)) {
-    Pmf pmf;
-    for (int i = 0; i < 7; ++i) pmf.c[i] = __ldcg(state + 6 + i);
-    pmf.rep = rep;
-    pmf.eff = eff;
-    pmf.in_frame = in_frame;
-    // B: Gc chunks' operands staged, then a thread a (chunk, a1, a2)
-    {
-      const int nch = __ldcg(chunk_base + w.nkeys), Gc = em_group(A);
-      float* a_s = sm;
-      float* b_s = sm + Gc * chunk * A;
-      for (int c0 = rank * Gc; c0 < nch; c0 += CL * Gc) {
+  while (it < max_iter && state[ST_DONE] == 0.0f && state[ST_BAD] == 0.0f) {
+    // B: each owned chunk's sums of its reads' terms, then the segments.
+    // Kept: its A*A terms stored for F.
+    if constexpr (KEEP) {
+      if (m > 0) {
+        const int nq = nq_all;
+        stage_terms(nq);
         __syncthreads();
-        for (int e = tid; e < Gc * chunk * A; e += T) {
-          const int sl = e / (chunk * A), rem = e - sl * chunk * A;
-          const int qq = rem / A, x = rem - qq * A, c = c0 + sl;
-          if (c < nch && __ldcg(ch_lo + c) + qq < __ldcg(ch_hi + c)) {
-            const int r = __ldcg(order + __ldcg(ch_lo + c) + qq);
-            const float v = pmf(r * A + x);
-            a_s[e] = (v + __ldg(lp1 + r)) + log_half;
-            b_s[e] = (v + __ldg(lp2 + r)) + log_half;
+        // item t = (q, a1, a2), stepped by T without a division
+        int q = tid / AA, a1 = (tid - q * AA) / A, a2 = tid - q * AA - a1 * A;
+        const int dq = T / AA, d1 = (T - dq * AA) / A;
+        const int d2 = T - dq * AA - d1 * A;
+        for (int t = tid; t < nq * AA; t += T) {
+          T_s[t] = lae(a_s[q * A + a1], b_s[q * A + a2]);
+          a2 += d2;
+          a1 += d1;
+          q += dq;
+          if (a2 >= A) {
+            a2 -= A;
+            ++a1;
+          }
+          if (a1 >= A) {
+            a1 -= A;
+            ++q;
           }
         }
         __syncthreads();
-        for (int jj = tid; jj < Gc * AA; jj += T) {
-          const int sl = jj / AA, j = jj - sl * AA, c = c0 + sl;
-          if (c >= nch) continue;
-          const int a1 = j / A, a2 = j - a1 * A;
-          const int cnt = __ldcg(ch_hi + c) - __ldcg(ch_lo + c);
-          const float* as = a_s + sl * chunk * A + a1;
-          const float* bs = b_s + sl * chunk * A + a2;
-          double acc = 0.0;
-          for (int qq = 0; qq < cnt; ++qq) acc += lae(as[qq * A], bs[qq * A]);
-          part[(long)c * AA + j] = acc;
+        partials(0, m, part_s);
+        __syncthreads();
+        segments(part_s);
+      }
+      cluster.sync();                                   // barrier 1
+    } else {
+      for (int g0 = 0, ng; g0 < m; g0 += ng) {
+        ng = group_end(g0) - g0;
+        __syncthreads();
+        stage_terms(stage_reads(g0, ng));
+        __syncthreads();
+        partials(g0, ng, part_g + (long)(f0 + g0) * AA);
+      }
+      __syncthreads();
+      segments(part_g + (long)f0 * AA);
+      __threadfence();
+      cluster.sync();                                   // barrier 1
+    }
+    // C: P = the shards' sums plus the prior, the totals (a warp a
+    // sample's logsumexp), the normalized posteriors, each (s, a)'s
+    // logsumexps over one allele axis.  Kept: every block forms all of
+    // them from the segments it reads over DSMEM, and the prior update's
+    // logaddexps.  Recomputed: block r takes samples r, r + CL, ... into
+    // device memory (the posteriors and totals into the result).
+    if constexpr (KEEP) {
+      for (int i = tid; i < S * AA; i += T) {
+        const int s = i / AA;
+        P_s[i] = post(s, i - s * AA);
+      }
+      __syncthreads();
+      for (int s = wid; s < S; s += NW)
+        sample_warp(P_s + s * AA, s, rowl_s, coll_s);
+      __syncthreads();
+      for (int a = wid; a < A; a += NW) {
+        const float c1 = warp_lse([&](int s) { return rowl_s[s * A + a]; }, S);
+        const float c2 = warp_lse([&](int s) { return coll_s[s * A + a]; }, S);
+        if (lane == 0) comb_s[a] = lae(c1, c2);
+      }
+    } else {
+      // batches of SB samples: rank, rank + CL, ... (local i: s0 + i CL)
+      for (int s0 = rank; s0 < S; s0 += sm.SB * CL) {
+        const int nb = min(sm.SB, (S - s0 + CL - 1) / CL);
+        for (int t = tid; t < nb * AA; t += T) {
+          const int i = t / AA;
+          P_s[t] = post(s0 + i * CL, t - i * AA);
         }
+        __syncthreads();
+        for (int i = wid; i < nb; i += NW) {
+          const int s = s0 + i * CL;
+          const float t = sample_warp(P_s + i * AA, s, rowl_g, coll_g);
+          for (int x = lane; x < AA; x += 32)
+            out_P[(long)s * AA + x] = P_s[i * AA + x];
+          if (lane == 0) out_tot[s] = t;
+        }
+        __syncthreads();
+      }
+      __threadfence();
+      cluster.sync();                                   // barrier 2
+    }
+    // F, G: on the kept terms, or on each group restaged.
+    if constexpr (KEEP) {
+      if (m > 0) phase_f(0, m, c_hi[m - 1] - glo);
+    } else {
+      for (int g0 = 0, ng; g0 < m; g0 += ng) {
+        ng = group_end(g0) - g0;
+        __syncthreads();
+        const int nq = stage_reads(g0, ng);
+        stage_terms(nq);
+        __syncthreads();
+        phase_f(g0, ng, nq);
       }
     }
-    sync();
-    // C: chunks in order within a shard, shards in shard order, the prior
-    for (int i = g; i < S * AA; i += G) {
-      const int s = i / AA, j = i - s * AA, a1 = j / A, a2 = j - a1 * A;
+    cluster.sync();                       // barrier 2 (kept), 3 (recomputed)
+    // H, every block: a warp a statistic adds each shard's chunks (lane-
+    // strided over DSMEM, then warp_sum) and the shards in shard order;
+    // recomputed, the other warps take the prior update's logaddexps and
+    // the totals from device memory; thread 0 takes the closed-form M step,
+    // the new priors and the convergence test (mesh.py:_em_train's rules)
+    // into the block's state.
+    if (wid < 7) {
       float tot = 0.0f;
       for (int k = 0; k < n; ++k) {
-        const int key = k * S + s, c1 = __ldcg(chunk_base + key + 1);
         double sh = 0.0;
-        for (int c = __ldcg(chunk_base + key); c < c1; ++c)
-          sh += __ldcg(part + (long)c * AA + j);
+        for (int c = cb_s[k * S] + lane; c < cb_s[(k + 1) * S]; c += 32) {
+          const int r = owner(c);
+          sh += cluster.map_shared_rank(stat_s, r)[(long)(c - fst[r]) * 7
+                                                   + wid];
+        }
+        sh = warp_sum(sh);
         tot = k == 0 ? (float)sh : tot + (float)sh;
       }
-      const float pm = haploid ? (a1 == a2 ? __ldcg(priors + a1) : -1e30f)
-                               : __ldcg(priors + a1) + __ldcg(priors + a2);
-      P[i] = tot + pm;
+      if (lane == 0) st[wid] = tot;
     }
-    sync();
-    // D: the per-sample totals, a warp a sample
-    for (int s = gw; s < S; s += GW) {
-      const float* Ps = P + (long)s * AA;
-      const float t = warp_lse([&](int i) { return __ldcg(Ps + i); }, AA);
-      if (lane == 0) totals[s] = t;
-    }
-    sync();
-    // F: lin of each (read, allele); the prior update's logsumexps over
-    // one allele axis.  A block takes T consecutive items a round; the
-    // normalized posteriors (when they fit) and its items' PMF rows are
-    // staged in shared memory.
-    {
-      const bool pn_on_chip = S * AA <= EM_PN_SMEM;
-      float* pn_s = sm;
-      float* prow = sm + (pn_on_chip ? S * AA : 0);
-      if (pn_on_chip)
-        for (int x = tid; x < S * AA; x += T)
-          pn_s[x] = __ldcg(P + x) - __ldcg(totals + x / AA);
-      auto Pn = [&](int s, int x) {
-        return pn_on_chip ? pn_s[s * AA + x]
-                          : __ldcg(P + (long)s * AA + x) - __ldcg(totals + s);
-      };
-      const int n_items = RA + 2 * S * A;
-      for (int i0 = rank * T; i0 < n_items; i0 += G) {
-        const int r0 = min(i0, RA) / A;
-        const int e1 = min(RA, ((min(i0 + T, RA) + A - 1) / A) * A);
-        __syncthreads();
-        for (int e = r0 * A + tid; e < e1; e += T) prow[e - r0 * A] = pmf(e);
-        __syncthreads();
-        const int i = i0 + tid;
-        if (i < RA) {
-          const int r = i / A, a = i - r * A;
-          float v = 0.0f;
-          if (valid[r]) {
-            const int s = (int)label[r];
-            const float* row = prow + (r - r0) * A;
-            const float h1 = log_half + __ldg(lp1 + r);
-            const float h2 = log_half + __ldg(lp2 + r);
-            const float one_a = h1 + row[a], two_a = h2 + row[a];
-            // f0: over a2 of Pn[s, a, a2] + (one[a] - lae(one[a], two[a2]))
-            const float f0 = lse([&](int a2) {
-              return Pn(s, a * A + a2) + (one_a - lae(one_a, h2 + row[a2]));
-            }, A);
-            // f1: over a1 of Pn[s, a1, a] + (two[a] - lae(one[a1], two[a]))
-            const float f1 = lse([&](int a1) {
-              return Pn(s, a1 * A + a) + (two_a - lae(h1 + row[a1], two_a));
-            }, A);
-            v = expf(f0) + expf(f1);
-          }
-          lin[i] = v;
-        } else if (i < n_items) {
-          const int j = i - RA, is_row = j < S * A;
-          const int sa = is_row ? j : j - S * A;
-          const int s = sa / A, a = sa - s * A;
-          if (is_row)
-            rowl[sa] = lse([&](int x) { return Pn(s, a * A + x); }, A);
-          else
-            coll[sa] = lse([&](int x) { return Pn(s, x * A + a); }, A);
-        }
-      }
-    }
-    sync();
-    // G: the seven sums of each shard's 32-entry chunks; the prior update
-    for (int wi = gw; wi < n * w.ncs + A; wi += GW) {
-      if (wi < n * w.ncs) {
-        const int k = wi / w.ncs, e = (wi - k * w.ncs) * 32 + lane;
-        double v7[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-        if (e < Rs * A) {
-          const long x = (long)k * Rs * A + e;
-          const float v = __ldcg(lin + x);
-          const int c = __ldg(cat + x);
-          v7[0] = c == 0 ? v : 0.0f;
-          v7[1] = c == 1 ? v : 0.0f;
-          v7[2] = c == 2 ? v : 0.0f;
-          v7[3] = c == 3 ? v : 0.0f;
-          v7[4] = c == 4 ? v : 0.0f;
-          v7[5] = v * __ldg(w_in + x);
-          v7[6] = v * __ldg(w_out + x);
-        }
-#pragma unroll
-        for (int q = 0; q < 7; ++q) v7[q] = warp_sum(v7[q]);
-        if (lane < 7) {
-          double mine = v7[0];
-#pragma unroll
-          for (int q = 1; q < 7; ++q) mine = lane == q ? v7[q] : mine;
-          stat[(long)wi * 7 + lane] = mine;
-        }
-      } else {
-        const int a = wi - n * w.ncs;
+    if constexpr (!KEEP) {
+      for (int a = wid - 7; a >= 0 && a < A; a += NW - 7) {
         const float c1 =
-            warp_lse([&](int s) { return __ldcg(rowl + s * A + a); }, S);
+            warp_lse([&](int s) { return __ldcg(rowl_g + s * A + a); }, S);
         const float c2 =
-            warp_lse([&](int s) { return __ldcg(coll + s * A + a); }, S);
-        if (lane == 0) comb[a] = lae(c1, c2);
+            warp_lse([&](int s) { return __ldcg(coll_g + s * A + a); }, S);
+        if (lane == 0) comb_s[a] = lae(c1, c2);
       }
+      for (int x = tid; x < S; x += T) tot_s[x] = __ldcg(out_tot + x);
     }
-    sync();
-    // H: the statistics, the M step and the convergence test, block 0
-    if (rank == 0) {
-      __shared__ float st[7];
-      float* s_tot = sm;
-      float* s_comb = sm + S;
-      const int wq = tid >> 5;
-      if (wq < 7) {
-        float tot = 0.0f;
-        for (int k = 0; k < n; ++k) {
-          double sh = 0.0;
-          for (int j = lane; j < w.ncs; j += 32)
-            sh += __ldcg(stat + ((long)k * w.ncs + j) * 7 + wq);
-          sh = warp_sum(sh);
-          tot = k == 0 ? (float)sh : tot + (float)sh;
-        }
-        if (lane == 0) st[wq] = tot;
+    __syncthreads();
+    if (tid == 0) {
+      float new_LL = 0.0f;
+      for (int s = 0; s < S; ++s) new_LL += tot_s[s];
+      const float lc = lse([&](int a) { return comb_s[a]; }, A);
+      float np[6];
+      mstep(st, np);
+      bool small = true;
+      for (int p = 0; p < 6; ++p)
+        small = small && fabsf(np[p] - state[p]) < 1e-4f;
+      // On the first iteration LL is -inf: abs_change is +inf and
+      // frac_change NaN, so only the parameter test can stop it there.
+      const float LL = state[ST_LL];
+      const bool nonmono = new_LL < LL + 1e-10f;
+      const float abs_change = new_LL - LL;
+      const float frac_change = -(new_LL - LL) / LL;
+      const bool conv_after =
+          (abs_change < min_abs && frac_change < min_frac) || small;
+      if (!nonmono) {
+        for (int p = 0; p < 6; ++p) state[p] = np[p];
+        pmf_consts(np, state + ST_PMF);
+        for (int a = 0; a < A; ++a) pri[a] = comb_s[a] - lc;
       }
-      for (int x = tid; x < S; x += T) s_tot[x] = __ldcg(totals + x);
-      for (int x = tid; x < A; x += T) s_comb[x] = __ldcg(comb + x);
-      __syncthreads();
-      if (tid == 0) {
-        float new_LL = 0.0f;
-        for (int s = 0; s < S; ++s) new_LL += s_tot[s];
-        const float lc = lse([&](int a) { return s_comb[a]; }, A);
-        float np[6], old[6];
-        mstep(st, np);
-        bool small = true;
-        for (int p = 0; p < 6; ++p) {
-          old[p] = __ldcg(state + p);
-          small = small && fabsf(np[p] - old[p]) < 1e-4f;
-        }
-        // On the first iteration LL is -inf: abs_change is +inf and
-        // frac_change NaN, so only the parameter test can stop it there.
-        const bool nonmono = new_LL < LL + 1e-10f;
-        const float abs_change = new_LL - LL;
-        const float frac_change = -(new_LL - LL) / LL;
-        const bool conv_after =
-            (abs_change < min_abs && frac_change < min_frac) || small;
-        if (!nonmono) {
-          for (int p = 0; p < 6; ++p) state[p] = np[p];
-          pmf_consts(np, state + 6);
-          for (int a = 0; a < A; ++a) priors[a] = s_comb[a] - lc;
-        }
-        LL = new_LL;
-        converged = nonmono || conv_after;
-        istate[0] = converged;
-      }
+      state[ST_LL] = new_LL;
+      state[ST_DONE] = nonmono || conv_after ? 1.0f : 0.0f;
     }
+    __syncthreads();
     ++it;
-    sync();
   }
+  cluster.sync();    // no block leaves while another reads its shared memory
 
   // The result: converged, n_iter, params (6), totals (S), the normalized
   // posteriors (S, A, A) of the final E-step (zeros if none ran).
-  if (g == 0) {
-    out[0] = (float)converged;
-    out[1] = (float)it;
-    for (int p = 0; p < 6; ++p) out[2 + p] = __ldcg(state + p);
+  if (rank == 0) {
+    if (tid == 0) {
+      out[0] = state[ST_DONE];
+      out[1] = state[ST_BAD] != 0.0f ? -1.0f : (float)it;
+      for (int p = 0; p < 6; ++p) out[2 + p] = state[p];
+    }
+    if (it == 0) {
+      for (int s = tid; s < S; s += T) out_tot[s] = 0.0f;
+      for (int i = tid; i < S * AA; i += T) out_P[i] = 0.0f;
+    } else if (KEEP) {
+      for (int s = tid; s < S; s += T) out_tot[s] = tot_s[s];
+      for (int i = tid; i < S * AA; i += T) out_P[i] = P_s[i];
+    }
   }
-  for (int s = g; s < S; s += G) out[8 + s] = it ? __ldcg(totals + s) : 0.0f;
-  for (int i = g; i < S * AA; i += G)
-    out[8 + S + i] = it ? __ldcg(P + i) - __ldcg(totals + i / AA) : 0.0f;
 }
 
 template <typename K>
@@ -698,29 +966,21 @@ int set_smem(K kernel, long smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-inline long lmax(long a, long b) { return a > b ? a : b; }
-
 }  // namespace
 
 extern "C" {
 
-long em_train_workspace_floats(int R, int A, int S, int n, int chunk) {
-  return em_layout(R, A, S, n, chunk).total;
+long em_train_workspace_floats(int R, int A, int S, int n, int chunk,
+                               int keep) {
+  return em_layout(R, A, S, n, chunk, keep).total;
 }
 
-// Dynamic shared memory of an EM train: the set-up's sort (block 0), the
-// staged chunks of phase B, the normalized posteriors (when S*A*A fits
-// EM_PN_SMEM) and PMF rows of phase F, the totals and the prior update's
-// sums of phase H.
-long em_train_smem_bytes(int A, int S, int n, int chunk) {
-  const long f = sizeof(float);
-  const long sort = (((2L * n * S + 1 + 3) & ~3L) + SORT_BATCH)
-                    * (long)sizeof(int);
-  const long b = 2L * em_group(A) * chunk * A * f;
-  const long pn = (long)S * A * A <= EM_PN_SMEM ? (long)S * A * A : 0;
-  const long fF = (pn + EM_THREADS + 2L * A) * f;
-  const long h = (long)(S + A) * f;
-  return lmax(lmax(sort, b), lmax(fF, h));
+// Dynamic shared memory of an EM train's blocks (em_smem), with its terms
+// kept (keep = 1) or recomputed; M and Qr the most chunks and reads a block
+// owns.
+long em_train_smem_bytes(int A, int S, int n, int chunk, int M, int Qr,
+                         int keep) {
+  return em_smem(A, S, n, chunk, M, Qr, keep).total;
 }
 
 long window_posteriors_smem_bytes(int A, int S, int CH) {
@@ -766,23 +1026,28 @@ int window_posteriors(const float* LL, const float* p1, const float* p2,
   return (int)cudaGetLastError();
 }
 
-// J4: one cluster of EM_CTAS blocks trains one locus; ws holds
-// em_train_workspace_floats floats; out (8 + S + S*A*A floats) is written.
+// J4: one cluster of EM_CTAS blocks trains one locus, its terms kept in
+// shared memory (keep = 1) or recomputed; no block owns more than M chunks
+// or Qr reads (n_iter is written as -1, and nothing trained, if one does);
+// ws holds em_train_workspace_floats floats; out (8 + S + S*A*A floats) is
+// written.
 int em_train(const int32_t* rep, const int32_t* eff, const uint8_t* in_frame,
              const float* lp1, const float* lp2, const int64_t* label,
              const uint8_t* valid, const int32_t* cat, const float* w_in,
              const float* w_out, const float* init_priors, int R, int A,
              int S, int n, int haploid, int max_iter, float min_abs,
-             float min_frac, float log_half, int chunk, float* ws, float* out,
-             void* stream) {
-  if (R < 1 || A < 1 || S < 1 || n < 1 || R % n || chunk < 1)
+             float min_frac, float log_half, int chunk, int M, int Qr,
+             int keep, float* ws, float* out, void* stream) {
+  if (R < 1 || A < 1 || S < 1 || n < 1 || R % n || chunk < 1 || M < 0
+      || Qr < 0)
     return (int)cudaErrorInvalidValue;
   void (*kern)(const int32_t*, const int32_t*, const uint8_t*, const float*,
                const float*, const int64_t*, const uint8_t*, const int32_t*,
                const float*, const float*, const float*, int, int, int, int,
-               int, int, float, float, float, int, float*, float*) =
-      em_train_kernel;
-  const long smem = em_train_smem_bytes(A, S, n, chunk);
+               int, int, float, float, float, int, int, int, float*,
+               float*) =
+      keep ? em_train_kernel<true> : em_train_kernel<false>;
+  const long smem = em_train_smem_bytes(A, S, n, chunk, M, Qr, keep);
   int e = set_smem(kern, smem);
   if (e) return e;
   e = (int)cudaFuncSetAttribute(
@@ -808,7 +1073,7 @@ int em_train(const int32_t* rep, const int32_t* eff, const uint8_t* in_frame,
   ce = cudaLaunchKernelEx(&cfg, kern, rep, eff, in_frame, lp1, lp2, label,
                           valid, cat, w_in, w_out, init_priors, R, A, S, n,
                           haploid, max_iter, min_abs, min_frac, log_half,
-                          chunk, ws, out);
+                          chunk, M, Qr, ws, out);
   if (ce != cudaSuccess) return (int)ce;
   return (int)cudaGetLastError();
 }

@@ -116,15 +116,15 @@ def _bind(lib) -> None:
     lib.mode_b_artifacts_warp.argtypes = ([p] * 10 + [i] * 6 + [d, d] + [i] * 2
                                           + [p, i, p, p])
     lib.mode_b_artifacts_warp.restype = i
-    lib.em_train_workspace_floats.argtypes = [i] * 5
+    lib.em_train_workspace_floats.argtypes = [i] * 6
     lib.em_train_workspace_floats.restype = ctypes.c_long
-    lib.em_train_smem_bytes.argtypes = [i] * 4
+    lib.em_train_smem_bytes.argtypes = [i] * 7
     lib.em_train_smem_bytes.restype = ctypes.c_long
     lib.window_posteriors_smem_bytes.argtypes = [i, i, i]
     lib.window_posteriors_smem_bytes.restype = ctypes.c_long
     lib.window_posteriors.argtypes = [p] * 6 + [i] * 6 + [f] + [p] * 6
     lib.window_posteriors.restype = i
-    lib.em_train.argtypes = [p] * 11 + [i] * 6 + [f] * 3 + [i] + [p] * 3
+    lib.em_train.argtypes = [p] * 11 + [i] * 6 + [f] * 3 + [i] * 4 + [p] * 3
     lib.em_train.restype = i
 
 

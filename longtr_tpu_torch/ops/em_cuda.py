@@ -14,7 +14,10 @@ posteriors (J3) and the EM stutter train loop (J4), one launch each.
   are split into ``n_shards`` equal slices, as the mesh splits them: each
   shard's partial sums are formed apart and added in shard order.  It
   returns one packed tensor (:func:`unpack`), so the caller reads the
-  result with one copy.
+  result with one copy.  Its blocks keep each read's E-step terms in
+  shared memory and exchange their sums over distributed shared memory
+  where :func:`em_layout`'s counts fit (:func:`em_branch` "kept"), and
+  recompute the terms otherwise ("recomputed"); both give the same bits.
 
 Each wrapper validates its tensors, allocates its outputs and workspace
 with ``torch.empty`` on the inputs' device, launches on the current CUDA
@@ -42,9 +45,22 @@ from longtr_tpu_torch.utils.mathops import LOG_ONE_HALF
 launches = {"window_posteriors": 0, "em_train": 0}
 
 # The EM kernel's first E-step half sums the terms of each (shard, sample)
-# in chunks of CHUNK_READS reads (in read order); the chunks are added in
-# order, then the shards.
+# in chunks of CHUNK_READS reads (in read order).  Block r of its cluster
+# of CLUSTER_BLOCKS blocks (csrc/em.cu's EM_CTAS) owns chunks
+# r * nch // CLUSTER_BLOCKS .. (r + 1) * nch // CLUSTER_BLOCKS - 1 of the
+# nch: it adds its chunks of a (shard, sample) in order, the blocks'
+# sums are added in block order, then the shards in shard order.
 CHUNK_READS = 32
+CLUSTER_BLOCKS = 16
+
+# The EM kernel keeps each read's terms in shared memory from one E-step
+# half to the other where its blocks' shared memory holds them and the
+# posteriors (em_branch); a test may set this lower than the card's limit
+# to send a train to the branch that recomputes them.
+smem_limit_bytes = None
+
+# Cluster barriers an iteration of each branch of the EM kernel.
+BARRIERS = {"kept": 2, "recomputed": 3}
 
 # The window kernel's split of a locus: a cluster of up to 8 blocks of
 # WINDOW_THREADS where the locus has fewer outputs (S * A * A) than 8
@@ -165,9 +181,46 @@ def unpack(out, num_samples: int, num_alleles: int):
             out[8 + S:].reshape(S, A, A), out[8:8 + S])
 
 
+def em_layout(label, valid, n_shards: int, num_samples: int):
+    """(chunks, reads): the most chunks and the most reads that one block of
+    the EM kernel's cluster owns.  The valid reads of each (shard, sample)
+    (shard k: rows [k R / n, (k + 1) R / n)) are cut into chunks of
+    CHUNK_READS in read order, the (shard, sample)s in order; block r owns
+    chunks r nch // CLUSTER_BLOCKS .. (r + 1) nch // CLUSTER_BLOCKS - 1.
+    The kernel lays out its shared memory by these two counts and checks
+    them."""
+    label = np.asarray(label, np.int64)
+    valid = np.asarray(valid, bool)
+    R, n, S = len(label), int(n_shards), int(num_samples)
+    ok = valid & (label >= 0) & (label < S)
+    key = (np.arange(R) // (R // n)) * S + label
+    counts = np.bincount(key[ok], minlength=n * S)
+    sizes = np.concatenate([np.zeros(0, np.int64)] + [
+        np.minimum(CHUNK_READS, c - np.arange(0, c, CHUNK_READS))
+        for c in counts])
+    first = np.arange(CLUSTER_BLOCKS + 1) * len(sizes) // CLUSTER_BLOCKS
+    ends = np.concatenate([[0], np.cumsum(sizes)])[first]
+    return int(np.diff(first).max()), int(np.diff(ends).max())
+
+
+def em_branch(num_alleles: int, num_samples: int, n_shards: int, layout,
+              device) -> str:
+    """The EM kernel's branch for a train of A alleles and S samples on
+    ``n_shards`` shards whose blocks own ``layout`` (:func:`em_layout`):
+    "kept" where a block's shared memory holds its reads' terms and the
+    posteriors, "recomputed" otherwise."""
+    need = int(_build.load_library().em_train_smem_bytes(
+        num_alleles, num_samples, n_shards, CHUNK_READS, *layout, 1))
+    limit = max_smem_optin(device)
+    if smem_limit_bytes is not None:
+        limit = min(limit, smem_limit_bytes)
+    return "kept" if need <= limit else "recomputed"
+
+
 def em_train(rep, eff, in_frame, log_p1, log_p2, label, cat, w_in, w_out,
              valid, init_priors, *, n_shards: int, num_samples: int,
-             haploid: bool, max_iter: int, min_abs: float, min_frac: float):
+             haploid: bool, max_iter: int, min_abs: float, min_frac: float,
+             layout):
     """The EM train loop of one locus; returns the packed result
     (:func:`unpack`) on the inputs' device.
 
@@ -177,6 +230,8 @@ def em_train(rep, eff, in_frame, log_p1, log_p2, label, cat, w_in, w_out,
     contribute nothing); init_priors (A,) float32.  R is a multiple of
     ``n_shards``; shard k is rows [k R / n, (k + 1) R / n)
     (``mesh.em_tables`` makes these tables).  CUDA tensors only.
+    ``layout``: :func:`em_layout` of label and valid, counted on the
+    host.
     """
     args = (rep, eff, in_frame, log_p1, log_p2, label, cat, w_in, w_out,
             valid, init_priors)
@@ -196,13 +251,14 @@ def em_train(rep, eff, in_frame, log_p1, log_p2, label, cat, w_in, w_out,
             **{k: (R,) for k in ("log_p1", "log_p2", "label", "valid")},
             "init_priors": (A,)})
     lib = _build.load_library()
-    n_ws = int(lib.em_train_workspace_floats(R, A, S, n, CHUNK_READS))
-    if n_ws > _I32 or R * A + 2 * S * A > _I32:
+    dev = rep.device
+    keep = int(em_branch(A, S, n, layout, dev) == "kept")
+    n_ws = int(lib.em_train_workspace_floats(R, A, S, n, CHUNK_READS, keep))
+    if n_ws > _I32 or R * A > _I32 or S * A * A > _I32:
         raise ValueError(f"R={R}, A={A}, S={S}: the train indexes its "
                          "workspace in 32 bits")
-    dev = rep.device
-    _smem_fits(lib.em_train_smem_bytes(A, S, n, CHUNK_READS), dev,
-               f"A={A}, S={S}, n_shards={n}")
+    _smem_fits(lib.em_train_smem_bytes(A, S, n, CHUNK_READS, *layout, keep),
+               dev, f"R={R}, A={A}, S={S}, n_shards={n}")
     ws = torch.empty(n_ws, dtype=f32, device=dev)
     out = torch.empty(packed_size(S, A), dtype=f32, device=dev)
     with torch.cuda.device(dev):
@@ -211,7 +267,7 @@ def em_train(rep, eff, in_frame, log_p1, log_p2, label, cat, w_in, w_out,
                                 valid, cat, w_in, w_out, init_priors)],
             R, A, S, n, int(bool(haploid)), int(max_iter),
             ctypes.c_float(min_abs), ctypes.c_float(min_frac),
-            _LOG_HALF, CHUNK_READS, _ptr(ws), _ptr(out),
+            _LOG_HALF, CHUNK_READS, *layout, keep, _ptr(ws), _ptr(out),
             _stream(dev))
     _raise_on(rc, "em_train")
     launches["em_train"] += 1

@@ -356,6 +356,9 @@ def em_result(out, num_samples: int, num_alleles: int):
     of a packed train result, as float64 host values."""
     converged, params, it, Pn, totals = em_cuda.unpack(
         torch.as_tensor(out).cpu().numpy(), num_samples, num_alleles)
+    if it < 0:
+        raise RuntimeError("em_train: a block of the kernel owns more chunks "
+                           "or reads than em_cuda.em_layout counted")
     return (converged, params.astype(np.float64), it, Pn.astype(np.float64),
             totals.astype(np.float64))
 
@@ -395,7 +398,8 @@ def em_train_sharded(mesh: Mesh, rep, eff, in_frame, log_p1, log_p2,
     if d0.type == "cuda":
         out = em_cuda.em_train(
             *(torch.from_numpy(a).to(d0) for a in (*tables, init)),
-            n_shards=mesh.size, **kw)
+            n_shards=mesh.size, layout=em_cuda.em_layout(
+                tables[5], tables[9], mesh.size, num_samples), **kw)
     else:
         out = em_train_plain(mesh, tables, torch.from_numpy(init), **kw)
     return em_result(out, num_samples, A)          # the one host read

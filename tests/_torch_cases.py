@@ -127,3 +127,19 @@ def cohort_case():
     return EMStutterGenotyper(False, "NN", num_bps, zeros, zeros,
                               [f"S{i}" for i in range(len(pairs))]
                               ).mesh_inputs()
+
+
+def realistic_em_locus():
+    """A factory of the EM trainer of one locus at a realistic size: 2000
+    reads of 3 diploid samples over 12 distinct length differences of a
+    dinucleotide repeat (in-frame and out-of-frame), drawn from a seed."""
+    rng = np.random.default_rng(7)
+    lengths = np.array([-8, -6, -4, -3, -2, -1, 0, 1, 2, 4, 6, 8])
+    num_bps = []
+    for (a, b), n in zip(((-4, 0), (0, 4), (2, 6)), (667, 667, 666)):
+        w = np.exp(-np.abs(lengths - a)) + np.exp(-np.abs(lengths - b))
+        num_bps.append(rng.choice(lengths, n, p=w / w.sum()).tolist())
+    zeros = [[0.0] * len(x) for x in num_bps]
+    names = ["S1", "S2", "S3"]
+    return lambda: EMStutterGenotyper(False, "NN", num_bps, zeros, zeros,
+                                      names)

@@ -39,7 +39,7 @@ from longtr_tpu_torch.pipeline.mode_b import ARTIFACT_KEYS, ROW_KEYS
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_cases import (assert_em_close, assert_posteriors_close,  # noqa: E402
                           cohort_case, em_case, plain_em_train,
-                          posterior_window, random_case)
+                          posterior_window, random_case, realistic_em_locus)
 
 BASES = np.array(list("ACGT"))
 CUSTOM = [-2.0, -0.3, -1.5, -0.25, -0.0001, -8.0, -9.0]
@@ -894,18 +894,29 @@ def test_window_posteriors_mesh_bit_identical(cuda_device, shards):
         assert np.array_equal(P, Pm) and np.array_equal(t, tm)
 
 
+def em_branch_of(tables, shards, device):
+    """em_cuda.em_branch for em_train_sharded's arguments on ``shards``."""
+    arrays = pm.em_tables(*tables[:9], shards)
+    S = tables[10]
+    return em_cuda.em_branch(np.shape(tables[0])[1], S, shards,
+                             em_cuda.em_layout(arrays[5], arrays[9], shards,
+                                               S), device)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shards", [1, 4])
 @pytest.mark.parametrize("name", ["diploid", "haploid", "max_iter"])
 def test_em_train_kernel_matches_plain(cuda_device, name, shards):
-    """em_train_sharded on a mesh of shards of the card: one launch a
-    train, the same bits from launch to launch, the full tolerances
-    against the plain loop on as many shards of the card, and the
-    cross-shard criterion ((converged, n_iter) equal, parameters within
-    1e-5) against the plain loop on as many CPU shards."""
+    """em_train_sharded on a mesh of shards of the card, its terms kept in
+    shared memory: one launch a train, the same bits from launch to
+    launch, the full tolerances against the plain loop on as many shards
+    of the card, and the cross-shard criterion ((converged, n_iter) equal,
+    parameters within 1e-5) against the plain loop on as many CPU
+    shards."""
     tables, max_iter = em_case(name)
     args = (*tables, max_iter, 0.01, 0.001)
     mesh = pm.Mesh([cuda_device] * shards)
+    assert em_branch_of(tables, shards, cuda_device) == "kept"
     em_cuda.reset_launches()
     got = pm.em_train_sharded(mesh, *args)
     again = pm.em_train_sharded(mesh, *args)
@@ -919,6 +930,60 @@ def test_em_train_kernel_matches_plain(cuda_device, name, shards):
     same = pm.em_train_sharded(pm.Mesh(["cpu"] * shards), *args)
     assert (got[0], got[2]) == (same[0], same[2])
     np.testing.assert_allclose(got[1], same[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("name", ["diploid", "haploid", "max_iter",
+                                  "realistic"])
+def test_em_train_kernel_branches_agree(cuda_device, monkeypatch, name,
+                                        shards):
+    """The branch that recomputes the terms (forced by a shared-memory
+    limit of 0) gives the bits of the branch that keeps them, one launch
+    a train each."""
+    if name == "realistic":
+        tables, max_iter = realistic_em_locus()().mesh_inputs(), 100
+    else:
+        tables, max_iter = em_case(name)
+    args = (*tables, max_iter, 0.01, 0.001)
+    mesh = pm.Mesh([cuda_device] * shards)
+    assert em_branch_of(tables, shards, cuda_device) == "kept"
+    em_cuda.reset_launches()
+    kept = pm.em_train_sharded(mesh, *args)
+    monkeypatch.setattr(em_cuda, "smem_limit_bytes", 0)
+    assert em_branch_of(tables, shards, cuda_device) == "recomputed"
+    recomputed = pm.em_train_sharded(mesh, *args)
+    assert em_cuda.launches["em_train"] == 2
+    assert (kept[0], kept[2]) == (recomputed[0], recomputed[2])
+    for a, b in zip(kept[1:], recomputed[1:]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 4])
+def test_em_train_kernel_realistic_locus(cuda_device, shards):
+    """The realistic locus (R=2000, A=12, S=3), its terms kept: one launch
+    a train, two launches bit-identical, (converged, n_iter) = (True, 7)
+    as on as many CPU shards and as the plain loop on the card, parameters
+    and posterior probabilities within 1e-5 of both.  (Its log-posteriors,
+    up to ~2e4 in magnitude, cannot meet rtol 1e-6 / atol 1e-4 between two
+    float32 orders: tests/test_torch_em_kernel.py.)"""
+    tables = realistic_em_locus()().mesh_inputs()
+    args = (*tables, 100, 0.01, 0.001)
+    mesh = pm.Mesh([cuda_device] * shards)
+    assert em_branch_of(tables, shards, cuda_device) == "kept"
+    em_cuda.reset_launches()
+    got = pm.em_train_sharded(mesh, *args)
+    again = pm.em_train_sharded(mesh, *args)
+    assert em_cuda.launches["em_train"] == 2
+    for a, b in zip(got[1:], again[1:]):
+        np.testing.assert_array_equal(a, b)
+    for want in (pm.em_train_sharded(pm.Mesh(["cpu"] * shards), *args),
+                 plain_em_train(mesh, tables, 100, 0.01, 0.001)):
+        assert (got[0], got[2]) == (want[0], want[2]) == (True, 7)
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(np.exp(got[3]), np.exp(want[3]), rtol=0,
+                                   atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -940,20 +1005,24 @@ def test_em_train_kernel_first_iteration_and_no_budget(cuda_device):
 
 @pytest.mark.gpu
 def test_em_train_kernel_many_samples(cuda_device):
-    """A cohort whose S * A * A exceeds what phase F stages in shared
-    memory: the kernel reads the posteriors from device memory.  It meets
+    """A cohort whose terms and posteriors do not fit the blocks' shared
+    memory: the kernel recomputes the terms and reads the posteriors from
+    device memory, one launch a train, the same bits twice.  It meets
     the full tolerances against the plain loop on as many CPU shards, and
     against the plain loop on the card (another float32 order of the same
     sums, which on this cohort is itself as far from CPU shards as the
     bound) (converged, n_iter) equal, parameters and posterior
     probabilities within 1e-5."""
     tables = cohort_case()
-    assert tables[10] * np.shape(tables[0])[1] ** 2 > 40960
+    assert em_branch_of(tables, 2, cuda_device) == "recomputed"
     args = (*tables, 100, 0.01, 0.001)
     mesh = pm.Mesh([cuda_device] * 2)
     em_cuda.reset_launches()
     got = pm.em_train_sharded(mesh, *args)
-    assert em_cuda.launches["em_train"] == 1
+    again = pm.em_train_sharded(mesh, *args)
+    assert em_cuda.launches["em_train"] == 2
+    for a, b in zip(got[1:], again[1:]):
+        np.testing.assert_array_equal(a, b)
     assert_em_close(got, pm.em_train_sharded(pm.Mesh(["cpu"] * 2), *args))
     want = plain_em_train(mesh, tables, 100, 0.01, 0.001)
     assert (got[0], got[2]) == (want[0], want[2])
@@ -976,7 +1045,8 @@ def test_em_kernels_refuse_what_they_cannot_take(cuda_device):
     valid = torch.ones(R, dtype=torch.bool, device=cuda_device)
     init = torch.from_numpy(np.asarray(tables[9], np.float32)).to(cuda_device)
     kw = dict(num_samples=tables[10], haploid=True, max_iter=5, min_abs=0.01,
-              min_frac=0.001)
+              min_frac=0.001, layout=em_cuda.em_layout(tables[5], np.ones(R),
+                                                       1, tables[10]))
     em_cuda.reset_launches()
     with pytest.raises(ValueError, match="dtype"):
         em_cuda.em_train(rep, eff, inf, p1, p2, lab, cat, wi.double(), wo,
