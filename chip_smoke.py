@@ -64,10 +64,15 @@ Phases, one line or more each:
    tables) and Mode B dispatch seconds of both runs.  The window
    posteriors (J3) on real windows: the 512-STR catalog once more with
    LONGTR_DEVICE_POSTERIOR=1 must give the VCF body of the runs without
-   it; it prints the loci a window, the launches (one a window), each
-   window's device time (torch.profiler, on the window's recorded inputs)
-   and the time of the host float64 posteriors that the kernel replaces
-   (timed in a run without the variable).
+   it; on each window's recorded inputs the kernel must meet
+   tests/test_posterior.py's tolerances against the plain version on the
+   card, locus by locus, and give the same bits on a second launch; it
+   prints the loci a window, the launches (one a window), each window's
+   device time (torch.profiler), the first window's time, the plain
+   version's and the bound, the time of the host float64 posteriors that
+   the kernel replaces (timed in a run without the variable), and the
+   Device posterior stage split into host packing, copies, kernel and
+   read-back.
 4. mesh    — a mesh of four shards on the one card (4 x cuda:0): the
    sharded pair-HMM at phase 2's 192 bp and 8 kb batches, through K1's
    variant for the width and through each of K2's two kernels, equals the
@@ -85,7 +90,11 @@ Phases, one line or more each:
    tests/test_posterior.py's tolerances against the plain version on the
    card, gives the same bits on a second launch and on a 4-shard mesh of a
    window of unequal loci, and is timed beside its plain version and its
-   bound; the five mesh surfaces of the dryrun catalog
+   bound; its two routes, forced, are timed on windows of one locus and of
+   256 equal loci of n reads (A = 4 and 12, S = 3) and on the mixed
+   window, where the step bound between them comes from (one
+   torch.profiler trace; the two routes must agree within the posterior
+   tolerances); the five mesh surfaces of the dryrun catalog
    (core, snp-vcf, mode-b+haploid, ref-vcf, em-training) through the CLI
    with the mesh are byte-identical to the meshless runs on the card, with
    the kernels (the window posteriors on every surface and, for
@@ -94,6 +103,10 @@ Phases, one line or more each:
    of the 512-STR catalog are byte-identical to phase 3's single run; and
    a `--jax-profile` run of the core surface writes a torch.profiler trace
    that holds pairhmm_resident kernel events.
+
+A torch.profiler trace that holds none of the kernels its calls launched
+is one the profiler lost: it is taken again and printed, and a second
+such trace in one run fails the smoke.
 
 The last lines are a JSON object of the kernels (each with its launches
 on the main path, error, time, plain version's time and bound), the
@@ -113,6 +126,7 @@ tables are float64 work, over 34 TFLOP/s (float64 outside the tensor
 cores, the same data sheet), counted on the run's data by artifact_ops.
 """
 
+import gc
 import gzip
 import json
 import os
@@ -357,27 +371,44 @@ def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label):
     return got32, int((c64 != host).sum()), host.size, err, host_s, err32
 
 
+# Traces the profiler lost in this run.  Each is taken again and printed;
+# a second in one run fails the smoke, so that a worsening loss shows.
+LOST_TRACES = []
+
+
+def lost_trace(what):
+    LOST_TRACES.append(what)
+    say("profile", f"torch.profiler lost a trace: {what}")
+    if len(LOST_TRACES) > 1:
+        fail(f"torch.profiler lost {len(LOST_TRACES)} traces in this run: "
+             f"{LOST_TRACES}")
+
+
 def profiled_us(fn, name, reps=20):
     """Device microseconds a call of the kernels whose name holds `name`,
-    from torch.profiler's key_averages over `reps` calls of `fn`."""
+    from torch.profiler's key_averages over `reps` calls of `fn`.  fn
+    launches such a kernel (the callers count its launches apart), so a
+    trace without one is one the profiler lost: it is taken again
+    (lost_trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += getattr(ev, "device_time_total", 0) or \
-                getattr(ev, "cuda_time_total", 0)
-            count += ev.count
-    if not count:
-        fail(f"torch.profiler recorded no {name} kernel")
-    return (total / count if total else None), count / reps
+    while True:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for ev in prof.key_averages():
+            if name in ev.key:
+                total += getattr(ev, "device_time_total", 0) or \
+                    getattr(ev, "cuda_time_total", 0)
+                count += ev.count
+        if count:
+            return (total / count if total else None), count / reps
+        lost_trace(f"no {name} kernel in {reps} calls")
 
 
 def ms_or_none(us):
@@ -615,6 +646,32 @@ def posterior_and_em_bounds(R, A, S, n_iter):
             (*bound(j4_ops, j4_bytes), j4_bytes))
 
 
+def window_bound(counts, A, S):
+    """J3's (ms, what bounds it, bytes) over a window whose loci hold
+    `counts` reads each, padded to A alleles and S samples: the sum of
+    posterior_and_em_bounds's J3 bytes and 6 operations a term over each
+    locus's own reads."""
+    nbytes = 0
+    for n in counts:
+        nbytes += posterior_and_em_bounds(int(n), A, S, 0)[0][2]
+    return (*bound(6.0 * float(sum(counts)) * A * A, nbytes), nbytes)
+
+
+def ev_ms(fn, reps):
+    """Milliseconds a call of fn on the card: CUDA events around `reps`
+    calls after one more."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    s_ev.record()
+    for _ in range(reps):
+        fn()
+    e_ev.record()
+    torch.cuda.synchronize()
+    return s_ev.elapsed_time(e_ev) / reps
+
+
 def em_errors(got, want):
     """(parameters, posterior probabilities, log-posteriors, the
     log-posteriors' largest share of rtol 1e-6 / atol 1e-4, totals) max
@@ -629,28 +686,28 @@ def em_errors(got, want):
             float(np.abs(got[4] - want[4]).max()))
 
 
-def profiled_kernels(fn, tries=3):
+def profiled_kernels(fn):
     """(fn's result, the CUDA kernel events of one call of fn, copies and
-    fills left out) from torch.profiler.  fn copies its inputs to the card,
-    so a trace without a single device event is one the profiler lost (seen
-    late in a long process): such a call is profiled again, at most
-    `tries` times, and the retries are printed."""
+    fills left out) from torch.profiler.  fn launches at least one kernel
+    (its launch counts are checked apart), so a trace without a single
+    kernel event is one the profiler lost (seen late in a long process,
+    with and without its copies): the call is profiled again
+    (lost_trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(1, tries + 1):
+    while True:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
         on_card = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        if on_card:
-            if attempt > 1:
-                say("mesh", f"torch.profiler recorded no device event in "
-                    f"{attempt - 1} trace(s) before this one")
-            return out, [e for e in on_card if not e.name.startswith(
-                ("Memcpy", "Memset"))]
-    fail(f"torch.profiler recorded no device event in {tries} traces")
+        kern = [e for e in on_card
+                if not e.name.startswith(("Memcpy", "Memset"))]
+        if kern:
+            return out, kern
+        lost_trace(f"{len(on_card)} device events, no kernel: "
+                   f"{sorted({e.name for e in on_card})}")
 
 
 def run_cli_processes(argvs, timeout):
@@ -692,17 +749,6 @@ def em_kernel_phase(dev, smi, mesh):
     from longtr_tpu_torch.ops import posterior as post
     from _torch_cases import (assert_posteriors_close, plain_em_train,
                               posterior_window, realistic_em_locus)
-
-    def ev_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        s_ev.record()
-        for _ in range(reps):
-            fn()
-        e_ev.record()
-        torch.cuda.synchronize()
-        return s_ev.elapsed_time(e_ev) / reps
 
     cfg = Config()
     conv = (cfg.max_em_iter, cfg.abs_ll_converge, cfg.frac_ll_converge)
@@ -843,9 +889,13 @@ def em_kernel_phase(dev, smi, mesh):
                     haploid=False)]
     arrays, S_max = post.pad_window(window1)
     g3 = [torch.from_numpy(x).to(dev) for x in arrays]
+
+    def j3_call():
+        return em_cuda.window_posteriors(*g3, S_max, np.array([R], np.int32))
+
     em_cuda.reset_launches()
-    P, tot = em_cuda.window_posteriors(*g3, S_max)
-    P2, tot2 = em_cuda.window_posteriors(*g3, S_max)
+    P, tot = j3_call()
+    P2, tot2 = j3_call()
     want_P, want_tot, _ = post.calc_log_sample_posteriors(
         *g3[:4], S_max, g3[5], read_mask=g3[4])
     torch.cuda.synchronize()
@@ -861,9 +911,8 @@ def em_kernel_phase(dev, smi, mesh):
     keep = want_P > -50
     j3_err = float((P - want_P).abs()[keep].max())
     tot_err = float((tot - want_tot).abs().max())
-    j3_ms = ev_ms(lambda: em_cuda.window_posteriors(*g3, S_max), 20)
-    j3_prof = profiled_us(lambda: em_cuda.window_posteriors(*g3, S_max),
-                          "window_posteriors_kernel")
+    j3_ms = ev_ms(j3_call, 20)
+    j3_prof = profiled_us(j3_call, "window_posteriors_kernel")
     j3_plain_ms = ev_ms(lambda: post.calc_log_sample_posteriors(
         *g3[:4], S_max, g3[5], read_mask=g3[4]), 20)
     window = posterior_window()
@@ -884,14 +933,20 @@ def em_kernel_phase(dev, smi, mesh):
         f" / atol 1e-2, MAP equal); {j3_ms:.4f} ms a call (CUDA events), "
         f"device time {fmt_ms(ms_or_none(j3_prof[0]))} (torch.profiler), "
         f"plain version {j3_plain_ms:.4f} ms; bound {j3_bound * 1e3:.4f} us "
-        f"({j3_by}; {j3_bytes} bytes), {j3_bound / j3_ms:.4%} of it; a "
+        f"({j3_by}; {j3_bytes} bytes), "
+        f"{j3_bound / (ms_or_none(j3_prof[0]) or j3_ms):.4%} of its device "
+        "time; a "
         f"window of {len(window)} unequal loci on 4 shards of the card == "
         f"one device (bit-identical), one launch a shard")
+    sweep = j3_route_sweep(dev, smi)
     results = {
         "window_posteriors": {
-            "ms": j3_ms, "plain_ms": j3_plain_ms, "bound_ms": j3_bound,
-            "bound_by": j3_by, "profiler_ms": ms_or_none(j3_prof[0]),
-            "max_abs_err": j3_err, "shape": f"R={R} A={A} S={S}, one locus"},
+            "ms": ms_or_none(j3_prof[0]) or j3_ms, "events_ms": j3_ms,
+            "plain_ms": j3_plain_ms, "bound_ms": j3_bound, "bound_by": j3_by,
+            "profiler_ms": ms_or_none(j3_prof[0]),
+            "share": j3_bound / (ms_or_none(j3_prof[0]) or j3_ms),
+            "max_abs_err": j3_err, "route_sweep": sweep,
+            "shape": f"R={R} A={A} S={S}, one locus"},
         "em_train": {
             "ms": j4_ms, "plain_ms": j4_plain_ms, "bound_ms": j4_bound,
             "bound_by": j4_by, "profiler_ms": ms_or_none(j4_prof[0]),
@@ -901,17 +956,140 @@ def em_kernel_phase(dev, smi, mesh):
     return results
 
 
-def j3_window_phase(smi, run, body, str_fx, str_single, tmp):
+def j3_route_sweep(dev, smi, reps=5):
+    """J3's two routes, each forced through em_cuda.WINDOW_SMALL_STEPS, on
+    windows of one locus and of 256 equal loci of n reads (A = 4 and 12,
+    S = 3) and on tests/_torch_cases.mixed_window (its 2000-read locus
+    among 255 small ones): device ms a launch, `reps` launches a window
+    and route, all in one torch.profiler trace (each (window, route) a
+    record_function span of its own).  The routes must meet
+    the posterior tolerances against each other.  Returns the rows and,
+    for each (A, loci), the least n at which the large route is the
+    faster: em_cuda.WINDOW_SMALL_STEPS lies between these crossings."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from longtr_tpu_torch.ops import em_cuda
+    from longtr_tpu_torch.ops import posterior as post
+    from _torch_cases import assert_posteriors_close, mixed_window, random_case
+    windows = []
+    for A, ns in ((4, (250, 500, 1000, 2000)), (12, (125, 250, 500, 1000))):
+        for L in (1, 256):
+            for n in ns:
+                loci = [random_case(np.random.default_rng(n), R=n, A=A,
+                                    S=3)] * L
+                windows.append(((A, L, n), loci))
+    windows.append((("mixed", 256, 2000), mixed_window()))
+    steps_now = em_cuda.WINDOW_SMALL_STEPS
+    calls = []
+
+    def launch(steps, g, S, counts):
+        em_cuda.WINDOW_SMALL_STEPS = steps
+        try:
+            return em_cuda.window_posteriors(*g, S, counts)
+        finally:
+            em_cuda.WINDOW_SMALL_STEPS = steps_now
+
+    for key, loci in windows:
+        arrays, S = post.pad_window(loci)
+        g = [torch.from_numpy(x).to(dev) for x in arrays]
+        counts = np.array([l["log_aln_probs"].shape[0] for l in loci],
+                          np.int32)
+        got = {}
+        for route, steps in (("small", 10 ** 12), ("large", 0)):
+            got[route] = launch(steps, g, S, counts)
+            calls.append((key, route, steps, g, S, counts))
+        i = int(np.argmax(counts))      # the largest locus
+        A, S_i = loci[i]["log_aln_probs"].shape[1], loci[i]["num_samples"]
+        (sP, st), (lP, lt) = got["small"], got["large"]
+        try:
+            assert_posteriors_close(
+                sP[i, :S_i, :A, :A].cpu(), st[i, :S_i].cpu(),
+                lP[i, :S_i, :A, :A].cpu(), lt[i, :S_i].cpu())
+        except AssertionError as e:
+            fail(f"window_posteriors routes differ at {key}: {e}")
+
+    def launch_all():
+        gc.disable()                # no collection pause within a span
+        try:
+            for i, (_key, _route, steps, g, S, counts) in enumerate(calls):
+                with record_function(f"j3 route sweep {i}"):
+                    for _ in range(reps):
+                        launch(steps, g, S, counts)
+                    torch.cuda.synchronize()
+                time.sleep(0.02)    # 20 ms idle between the spans
+        finally:
+            gc.enable()
+
+    # each kernel belongs to the span of the calls that launched it (the
+    # spans lie 20 ms apart); the profiler may drop a kernel event now and
+    # then, so a span's time is the mean of those it holds, and a trace
+    # with a span that holds none is one it lost
+    launch_all()
+    while True:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            launch_all()
+        evs = prof.events()
+        spans = {e.name: e.time_range for e in evs
+                 if e.name.startswith("j3 route sweep ")}
+        kern = [e for e in evs
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "window_posteriors_kernel" in e.name]
+        groups = []
+        for i in range(len(calls)):
+            tr = spans.get(f"j3 route sweep {i}")
+            groups.append([] if tr is None else [
+                e for e in kern if tr.start - 5000 <= e.time_range.start
+                <= tr.end + 5000])
+        if all(groups):
+            break
+        lost_trace(f"route sweep: {sum(not g for g in groups)} of "
+                   f"{len(calls)} spans hold no kernel")
+    if max(map(len, groups)) > reps:
+        fail(f"window_posteriors route sweep: a span holds more than "
+             f"{reps} kernels")
+    ms = {}
+    for grp, (key, route, *_rest) in zip(groups, calls):
+        ms.setdefault(key, {})[route] = sum(
+            e.time_range.elapsed_us() for e in grp) / len(grp) / 1e3
+    crossings = {}
+    for (A, L, n), t in ms.items():
+        if A != "mixed" and t["large"] < t["small"]:
+            crossings.setdefault(f"A={A} L={L}", n)
+    rows = [{"A": A, "L": L, "n": n, "small_ms": t["small"],
+             "large_ms": t["large"]} for (A, L, n), t in ms.items()]
+    say("mesh", f"window_posteriors routes on {smi}, device ms a launch "
+        f"(torch.profiler, {reps} a window; S=3), small / large: " + "; ".join(
+            f"A={r['A']} L={r['L']} n={r['n']} {r['small_ms']:.5f} / "
+            f"{r['large_ms']:.5f}" for r in rows)
+        + f"; the large route the faster from n = {crossings} (none: "
+        f"at no n swept); WINDOW_SMALL_STEPS = {steps_now}; kernel events "
+        f"{sum(map(len, groups))} of {reps * len(calls)} launches")
+    return {"rows": rows, "large_faster_from_n": crossings}
+
+
+def j3_window_phase(smi, run, body, str_fx, str_single, tmp, dev):
     """The window posteriors (J3) on real windows: the 512-STR catalog once
     with LONGTR_DEVICE_POSTERIOR=1, its VCF body byte-identical to the run
     without it (phase 3's on the card, and a second one here that times
     the host float64 posteriors the kernel replaces: the first
     _calc_posteriors of each genotype_finalize that has no device
-    posterior).  Returns the loci a window, the launches, each window's
-    device time (torch.profiler, on the window's recorded inputs) and the
-    host time, for the kernels line."""
+    posterior).  On each window's recorded inputs the kernel meets
+    tests/test_posterior.py's tolerances against the plain version on the
+    card, locus by locus, and two launches give the same bits.  Returns
+    the loci a window, the launches, the first window's times (CUDA
+    events, torch.profiler, the plain version), bound and error, every
+    window's device time, the host time, and the Device posterior stage
+    split into host packing (posterior_request and pad_window, timed in
+    the run), copies, kernel and read-back (timed again on the run's
+    windows), for the kernels line."""
+    import numpy as np
+    import torch
     from longtr_tpu_torch.ops import em_cuda
+    from longtr_tpu_torch.ops import posterior as post
     from longtr_tpu_torch.pipeline.seq_genotyper import SeqStutterGenotyper
+    from _torch_cases import assert_posteriors_close
     sg = SeqStutterGenotyper
     host = [0, 0.0]
     finalize, calc = sg.genotype_finalize, sg._calc_posteriors
@@ -935,49 +1113,147 @@ def j3_window_phase(smi, run, body, str_fx, str_single, tmp):
                                     tmp)
     finally:
         sg.genotype_finalize, sg._calc_posteriors = finalize, calc
-    windows = []
-    real = em_cuda.window_posteriors
+    windows, requests = [], []
+    packing = {"posterior_request": 0.0, "pad_window": 0.0}
+    real, pad, request = (em_cuda.window_posteriors, post.pad_window,
+                          sg.posterior_request)
 
-    def recording(*args):
-        windows.append(args)
-        return real(*args)
+    def recording(*args, **kw):
+        windows.append((args, kw))
+        return real(*args, **kw)
 
-    em_cuda.window_posteriors = recording
+    def timed_pad(loci):
+        requests.append(loci)
+        t = time.perf_counter()
+        out = pad(loci)
+        packing["pad_window"] += time.perf_counter() - t
+        return out
+
+    def timed_request(self, *args, **kw):
+        t = time.perf_counter()
+        out = request(self, *args, **kw)
+        packing["posterior_request"] += time.perf_counter() - t
+        return out
+
+    em_cuda.window_posteriors, post.pad_window = recording, timed_pad
+    sg.posterior_request = timed_request
     os.environ["LONGTR_DEVICE_POSTERIOR"] = "1"
     em_cuda.reset_launches()         # the counts to 0 just before the run
     try:
         dev_out, dev_dt, m = run("STR device posterior", str_fx, [], None,
                                  tmp)
     finally:
-        em_cuda.window_posteriors = real
+        em_cuda.window_posteriors, post.pad_window = real, pad
+        sg.posterior_request = request
         del os.environ["LONGTR_DEVICE_POSTERIOR"]
     launches = em_cuda.launches["window_posteriors"]
     want = body(str_single)
     if body(host_out) != want or body(dev_out) != want:
         fail("STR device posterior: VCF body differs from the run without "
              "LONGTR_DEVICE_POSTERIOR")
-    if launches != len(windows) or not launches:
+    if launches != len(windows) or not launches \
+            or len(requests) != len(windows):
         fail(f"STR device posterior: {launches} window_posteriors launches "
              f"for {len(windows)} windows")
-    loci = [int(w[0].shape[0]) for w in windows]
-    shapes = [tuple(int(x) for x in w[0].shape) + (int(w[6]),)
+    loci = [int(w[0][0].shape[0]) for w in windows]
+    shapes = [tuple(int(x) for x in w[0][0].shape) + (int(w[0][6]),)
               for w in windows]
-    prof = [profiled_us(lambda w=w: real(*w), "window_posteriors_kernel",
-                        reps=10)[0] for w in windows]
+    # the kernel against the plain version on the card, locus by locus
+    err = 0.0
+    for (args, kw), reqs in zip(windows, requests):
+        got = real(*args, **kw)
+        again = real(*args, **kw)
+        plain = post.calc_log_sample_posteriors(*args[:4], args[6], args[5],
+                                                read_mask=args[4])
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
+            fail("STR device posterior: two launches on a window differ")
+        for i, r in enumerate(reqs):
+            A, S = r["log_aln_probs"].shape[1], r["num_samples"]
+            try:
+                assert_posteriors_close(
+                    got[0][i, :S, :A, :A].cpu(), got[1][i, :S].cpu(),
+                    plain[0][i, :S, :A, :A].cpu(), plain[1][i, :S].cpu())
+            except AssertionError as e:
+                fail(f"STR device posterior: locus {i} of a window against "
+                     f"the plain version on the card: {e}")
+        keep = plain[0] > -50
+        err = max(err, float((got[0] - plain[0]).abs()[keep].max()))
+    prof = [profiled_us(lambda w=w: real(*w[0], **w[1]),
+                        "window_posteriors_kernel", reps=10)[0]
+            for w in windows]
+    args, kw = windows[0]
+    j3_ms = ev_ms(lambda: real(*args, **kw), 20)
+    plain_ms = ev_ms(lambda: post.calc_log_sample_posteriors(
+        *args[:4], args[6], args[5], read_mask=args[4]), 20)
+    L, R, A = args[0].shape
+    S = int(args[6])
+    j3_bound, j3_by, j3_bytes = window_bound(kw["counts"], A, S)
+    padded_bytes = window_bound([R] * L, A, S)[2]
+    # the Device posterior stage split: host packing in the run; copies,
+    # kernel (the wrapper, its counts' copy, the launch) and read-back
+    # timed again on the run's windows, the median of 5
+    split = {"copies": 0.0, "kernel": 0.0, "read_back": 0.0}
+    for reqs in requests:
+        arrays, S_max = pad(reqs)
+        counts = np.array([r["log_aln_probs"].shape[0] for r in reqs],
+                          np.int32)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = [torch.from_numpy(x).to(dev) for x in arrays]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            P, tot = real(*g, S_max, counts)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            P.cpu().numpy(), tot.cpu().numpy()
+            times.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+        for k, v in zip(split, np.median(times[1:], axis=0)):
+            split[k] += float(v)
     dev_s = m["stage_seconds"].get("Device posterior", 0.0)
+    split_ms = {k: v * 1e3 for k, v in {**packing, **split}.items()}
     say("e2e", f"STR device posterior on {smi}: {m['loci_processed']} loci, "
         f"{launches} window_posteriors launches, one a window of {loci} "
-        f"loci ((L, R_max, A_max, S_max) {shapes}); device time a window "
-        f"{[fmt_ms(ms_or_none(u)) for u in prof]} (torch.profiler); the "
-        f"Device posterior stage {dev_s:.4f} s; the host float64 posteriors "
-        f"it replaces {host[1] * 1e3:.3f} ms over {host[0]} loci "
+        f"loci ((L, R_max, A_max, S_max) {shapes}); against the plain "
+        f"version on the card, locus by locus, log-posteriors within "
+        f"{err:.4g} where it is above -50 (tolerances atol 5e-3, rtol 1e-5"
+        f" / atol 1e-2, MAP equal), two launches bit-identical; device time "
+        f"a window {[fmt_ms(ms_or_none(u)) for u in prof]} "
+        f"(torch.profiler); the first window {j3_ms:.5f} ms a call (CUDA "
+        f"events), the plain version {plain_ms:.4f} ms; bound "
+        f"{j3_bound * 1e3:.4f} us ({j3_by}; {j3_bytes} bytes of the loci's "
+        f"own reads, {padded_bytes} bytes padded to R_max), "
+        f"{j3_bound / (ms_or_none(prof[0]) or j3_ms):.4%} of its device "
+        f"time; the host float64 posteriors it "
+        f"replaces {host[1] * 1e3:.3f} ms over {host[0]} loci "
         f"({host[1] * 1e3 / max(1, len(windows)):.3f} ms a window); VCF "
         f"body byte-identical to both runs without it ({dev_dt:.2f} s, "
         f"host {host_dt:.2f} s)")
-    return {"window_loci": loci, "window_launches": launches,
+    say("e2e", f"STR device posterior stage {dev_s * 1e3:.3f} ms over "
+        f"{len(windows)} windows: host packing posterior_request "
+        f"{split_ms['posterior_request']:.3f} ms and pad_window "
+        f"{split_ms['pad_window']:.3f} ms (in the run); copies "
+        f"{split_ms['copies']:.3f} ms, kernel (the wrapper, its counts' "
+        f"copy, launch, sync) {split_ms['kernel']:.3f} ms, read-back "
+        f"{split_ms['read_back']:.3f} ms (the run's windows again, median "
+        "of 5)")
+    # the kernel's time is the profiler's device time: at ~0.01 ms a
+    # window the events of back-to-back calls time the wrapper's host work
+    ms = ms_or_none(prof[0]) or j3_ms
+    return {"ms": ms, "events_ms": j3_ms, "plain_ms": plain_ms,
+            "bound_ms": j3_bound, "bound_by": j3_by,
+            "profiler_ms": ms_or_none(prof[0]), "max_abs_err": err,
+            "shape": f"real window {shapes[0]}", "share": j3_bound / ms,
+            "launches": launches,
+            "window_loci": loci,
             "window_profiler_ms": [ms_or_none(u) for u in prof],
             "host_posterior_ms": host[1] * 1e3,
-            "host_posterior_loci": host[0]}
+            "host_posterior_loci": host[0],
+            "device_posterior_stage_ms": dev_s * 1e3,
+            "device_posterior_split_ms": split_ms}
 
 
 def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
@@ -1743,7 +2019,7 @@ def smoke(tmp, dev, smi):
             f"{rst.get('Mode B dispatch', 0.0):.3f}")
 
     j3_window = j3_window_phase(smi, run, body, str_fx, results["STR"][0],
-                                tmp)
+                                tmp, dev)
     say("e2e", f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     # ---- 4. mesh ---------------------------------------------------------
@@ -1789,13 +2065,15 @@ def smoke(tmp, dev, smi):
     h1_src = "longtr_tpu_torch/csrc/mode_b_artifacts.cu"
     j2_src = "longtr_tpu_torch/csrc/mode_b.cu"
     em_src = "longtr_tpu_torch/csrc/em.cu"
-    em["window_posteriors"].update(j3_window)
+    # J3's numbers at the main path's real window; the one locus beside
+    j3_window["one_locus"] = em["window_posteriors"]
+    em["window_posteriors"] = j3_window
     mb.update(em)
     for name, run_tag, replaces, source in (
             ("mode_b_artifacts", "STR mode B", h1, h1_src),
             ("mode_b_cols", "STR mode B", j2, j2_src),
             ("mode_b_cols_block", "dryrun mode-b+haploid block", j2, j2_src),
-            ("window_posteriors", "dryrun core device-posterior", j3, em_src),
+            ("window_posteriors", None, j3, em_src),
             ("em_train", None, j4, em_src)):
         k = mb[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -1808,7 +2086,11 @@ def smoke(tmp, dev, smi):
                         "shape": k["shape"],
                         **{x: k[x] for x in (
                             "profiler_ms", "branch", "barriers_per_iteration",
-                            *j3_window) if x in k}})
+                            "events_ms", "share", "one_locus", "window_loci",
+                            "window_profiler_ms", "host_posterior_ms",
+                            "host_posterior_loci",
+                            "device_posterior_stage_ms",
+                            "device_posterior_split_ms") if x in k}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

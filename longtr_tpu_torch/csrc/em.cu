@@ -4,24 +4,57 @@
 // window_posteriors_kernel replaces longtr_tpu/ops/posterior.py::
 // batched_posteriors, which runs calc_log_sample_posteriors under
 // jax.jit(jax.vmap(...)): one compiled program a window.  Its plain version
-// is longtr_tpu_torch/ops/posterior.py::calc_log_sample_posteriors.  One
-// thread-block cluster of KB blocks a locus of the padded window (KB up to
-// 8 where the locus has fewer outputs than the cluster has threads, set by
-// the wrapper from (S, A)):
-//   1. block 0 sorts the locus's unmasked reads by sample, stably, into the
-//      locus's slice of a device-memory workspace (block_sort below);
-//   2. block k takes every KB-th tile of CH sorted reads, stages their
-//      operands in shared memory,
-//        a = (clamp(LL[r, x]) + p1[r]) + log 1/2,
-//        b = (clamp(LL[r, x]) + p2[r]) + log 1/2   (LL clamped at -600),
-//      and a thread an output (s, a1, a2) adds logaddexp(a[a1], b[a2]) of
-//      its sample's reads in the tile, in read order, into a float64
-//      partial;
-//   3. the blocks' partials are added in block order and rounded once, the
-//      prior added; a warp a sample takes the logsumexp of its A*A entries
-//      (warp_lse), and every entry is normalized by it.
-// KB and CH follow from the padded window's (S, A), so a locus gets the
-// same bits whichever shard of a mesh it lands on, and on every launch.
+// is longtr_tpu_torch/ops/posterior.py::calc_log_sample_posteriors.  For
+// each locus of the padded window it forms, for each unmasked read r,
+//   a = (clamp(LL[r, x]) + p1[r]) + log 1/2,
+//   b = (clamp(LL[r, x]) + p2[r]) + log 1/2   (LL clamped at -600),
+// adds logaddexp(a[a1], b[a2]) of each sample's reads into output (s, a1,
+// a2) in float64, rounds once, adds the prior, and normalizes each sample
+// by the logsumexp of its A*A entries (warp_lse).
+//
+// What bounds J3: bytes.  A real window of the 512-STR catalog, (L, R_max,
+// A_max, S_max) = (256, 60, 4, 3), moves 575,488 bytes (0.17 us at 3.35
+// TB/s) for 1.5e6 operations (0.02 us); a launch alone costs microseconds,
+// so the kernel's time is the latency of its structure.  The design:
+//   - A locus's work follows its own count n of reads (the rows [0, n) of
+//     its slice, which the host knows before padding), never R_max.
+//   - No sort.  Each tile of CH staged reads is cut into rounds of 32, and
+//     a warp gives each sample of a round the bit mask of its reads
+//     (__ballot_sync(key == s), one ballot a sample present).  The thread
+//     of output (s, a1, a2) walks its sample's set bits in order: it sums
+//     its sample's reads in read order, the order a stable sort by sample
+//     gives, and a warp whose lanes hold different samples takes as long
+//     as its longest sample, not as all of them.
+//   - Small loci (em_cuda.window_plan: a thread's walk of about n / S
+//     reads for each of its outputs at most WINDOW_SMALL_STEPS long, so
+//     a count of at most small_max): a team of 1-4 warps a locus, teams
+//     of four warps at most a block, no cluster; each sample's outputs
+//     start a warp of their own.  The team stages its locus's operands in
+//     shared memory with coalesced loads, keeps the float64 sums there,
+//     takes the logsumexps and writes P and the totals once: no
+//     device-memory workspace, no fence, no barrier but the team's own (a
+//     named barrier, or __syncwarp).  The 256 loci of a real window take
+//     256 blocks of three warps (a sample each), all resident at once on
+//     132 SMs: one wave.
+//   - Large loci: a cluster of WP_CLUSTER blocks a locus.  Block k sums
+//     the rounds k, k + 8, k + 16, ... (so that each block holds every
+//     sample's share where a locus lists its reads sample by sample) into
+//     float64 partials in its own shared memory (in J sub-teams of warps
+//     where the outputs would leave threads idle: sub-team j takes the
+//     block's rounds j, j + J, ..., and the block adds the sub-teams'
+//     partials in order); one cluster barrier; block k adds every block's
+//     partials of its samples (k, k + 8, ...) over DSMEM in block order;
+//     a last cluster barrier keeps each block's shared memory until the
+//     others have read it.  Samples whose sums do not fit shared memory at
+//     once are taken in batches, each batch behind its own two barriers.
+// One launch a window: the large loci's clusters, then the small loci's
+// blocks.  The kernel reads the loci's counts (int32, copied with the
+// launch) and maps its blocks to loci itself: small block b's team t takes
+// locus b * teams + t if that locus is small, cluster c the c-th large
+// locus in window order (a ballot over the counts).  The route and J
+// follow from the locus's count and the padded (A, S) alone, and every
+// sum has one order, so a locus gets the same bits whichever shard of a
+// mesh it lands on, and on every launch.
 //
 // em_train_kernel replaces longtr_tpu/parallel/mesh.py::_em_train_local, a
 // lax.while_loop inside shard_map: the whole train loop in one device
@@ -86,13 +119,13 @@
 // What bounds them: their work is small (J4 at R=2000 reads, A=12 alleles,
 // S=3 samples: ~5 R A^2 logaddexps an iteration, the tables ~0.5 MB), so
 // the plain versions were launch-bound.  One launch removes that; what is
-// left is latency: J3 gives a locus one cluster, and J4 runs ~7 iterations
-// of dependent phases on the cluster's EM_CTAS SMs.  So no thread walks a
-// chain of dependent loads: the operands a loop reads are staged in shared
-// memory by parallel loads first, and a reduction is a warp's lanes, each
-// over a strided share, then a butterfly (warp_sum).  A design in which a
-// thread walked a sum reading L2 one value after another was several times
-// slower on an H100.
+// left is latency: J3's few dependent steps a locus (above), and J4's ~7
+// iterations of dependent phases on the cluster's EM_CTAS SMs.  So no
+// thread walks a chain of dependent loads: the operands a loop reads are
+// staged in shared memory by parallel loads first, and a reduction is a
+// warp's lanes, each over a strided share, then a butterfly (warp_sum).  A
+// design in which a thread walked a sum reading L2 one value after another
+// was several times slower on an H100.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -104,7 +137,9 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr float LL_CLAMP = -600.0f;
-constexpr int WP_THREADS = 512;       // window posteriors: threads a block
+constexpr int WP_THREADS = 512;       // window posteriors: a large
+                                      // locus's block,
+constexpr int WP_CLUSTER = 8;         // and its cluster (portable)
 constexpr int SORT_BATCH = 4096;      // keys a block stages at once (sort)
 constexpr int EM_CTAS = 16;           // EM train: blocks of its cluster,
                                       // Hopper's largest (non-portable)
@@ -211,6 +246,170 @@ __device__ void block_sort(Key key, int n, int nkeys, int* start,
   __syncthreads();
 }
 
+// The shared memory of one J3 team (a small locus's warps, or a large
+// locus's block), byte offsets of its regions: the float64 sums of J
+// sub-teams (J x SB x A x A), the staged operands of a tile of CH reads (a,
+// b: CH x A floats), the batch's posteriors before normalization (SB x A x
+// A floats), its totals (SB) and the tile's round masks (CH / 32 x SB).  SB
+// is the samples of a batch.
+struct WpSmem {
+  long part, a, b, P, tot, msk, total;
+};
+
+__host__ __device__ inline WpSmem wp_smem(int A, int SB, int CH, int J) {
+  const long O = (long)SB * A * A;
+  WpSmem w;
+  long o = 0;
+  w.part = o;  o += (long)J * O * (long)sizeof(double);
+  w.a = o;     o += (long)CH * A * (long)sizeof(float);
+  w.b = o;     o += (long)CH * A * (long)sizeof(float);
+  w.P = o;     o += O * (long)sizeof(float);
+  w.tot = o;   o += (long)SB * (long)sizeof(float);
+  w.msk = o;   o += (long)(CH / 32) * SB * (long)sizeof(unsigned);
+  w.total = (o + 15) & ~15L;
+  return w;
+}
+
+// The threads of a J3 team and their barrier: the whole block (id 0), one
+// warp, or a named barrier of W threads.
+struct Team {
+  int tid, W, id;
+  __device__ __forceinline__ void sync() const {
+    if (id == 0)
+      __syncthreads();
+    else if (W == 32)
+      __syncwarp();
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(W) : "memory");
+  }
+};
+
+// One J3 team sums the reads of samples [s0, s0 + SB) of one locus of n
+// reads into part (J x SB*A*A doubles; sub-team j's sums at j * SB*A*A).
+// Round g is the reads [32 g, 32 g + 32) below n; the team takes the
+// rounds g0, g0 + gs, g0 + 2 gs, ..., CH / 32 of them a tile, and its
+// sub-team j the team's rounds j, j + J, ...  A thread of output (s, a1,
+// a2) of sub-team j adds logaddexp(a[a1], b[a2]) of each read of sample s
+// in its rounds, in read order, to its float64 sum.  Each sample's
+// outputs start a warp of their own (SS = roundup(A*A, 32) thread slots a
+// sample), so no warp waits on two samples' reads where a round holds one
+// sample's.  With J > 1, J * SB * SS <= W and each thread holds one
+// output.
+__device__ void wp_team_sums(const Team& tm, const float* __restrict__ LL,
+                             const float* __restrict__ p1,
+                             const float* __restrict__ p2,
+                             const int64_t* __restrict__ label,
+                             const uint8_t* __restrict__ mask, int A, int s0,
+                             int SB, int n, int g0, int gs, int CH, int J,
+                             float log_half, double* part, float* a_s,
+                             float* b_s, unsigned* msk) {
+  const int AA = A * A, O = SB * AA, SS = (AA + 31) & ~31, U = SB * SS;
+  const int lane = tm.tid & 31, w = tm.tid >> 5, nw = tm.W >> 5;
+  const int j = J > 1 ? tm.tid / U : 0;
+  const int u_first = J > 1 ? tm.tid - j * U : tm.tid;
+  const int u_step = J > 1 ? U : tm.W;
+  const int TR = CH >> 5;                    // rounds a tile
+  const int nt = g0 < (n + 31) >> 5 ? ((n + 31) / 32 - g0 + gs - 1) / gs : 0;
+  for (int o = tm.tid; o < J * O; o += tm.W) part[o] = 0.0;
+  for (int t0 = 0; t0 < nt; t0 += TR) {      // t0: the tile's first round
+    const int nr = min(TR, nt - t0);
+    tm.sync();                               // the last tile is read
+    for (int e = tm.tid; e < nr * 32 * A; e += tm.W) {
+      const int qq = e / A, x = e - qq * A;
+      const int r = (g0 + (t0 + (qq >> 5)) * gs) * 32 + (qq & 31);
+      if (r < n) {
+        const float v = clamp_ll(LL[(long)r * A + x]);
+        a_s[e] = (v + p1[r]) + log_half;
+        b_s[e] = (v + p2[r]) + log_half;
+      }
+    }
+    // each round's masks: bit q of msk[rr * SB + s] is read q of the
+    // tile's round rr if that read is unmasked and of sample s0 + s
+    for (int rr = w; rr < nr; rr += nw) {
+      const int r = (g0 + (t0 + rr) * gs) * 32 + lane;
+      int key = -1;
+      if (r < n && mask[r]) {
+        const int64_t s = label[r] - s0;
+        if (s >= 0 && s < SB) key = (int)s;
+      }
+      for (int s = lane; s < SB; s += 32) msk[rr * SB + s] = 0u;
+      __syncwarp();
+      unsigned left = __ballot_sync(0xffffffffu, key >= 0);
+      while (left) {
+        const int k = __shfl_sync(0xffffffffu, key, __ffs(left) - 1);
+        const unsigned m = __ballot_sync(0xffffffffu, key == k);
+        if (lane == 0) msk[rr * SB + k] = m;
+        left &= ~m;
+      }
+      __syncwarp();
+    }
+    tm.sync();
+    if (j >= J) continue;
+    const int rr0 = ((j - t0) % J + J) % J;   // this sub-team's first round
+    for (int u = u_first; u < U; u += u_step) {   // thread slot u
+      const int s = u / SS, i = u - s * SS, a1 = i / A, a2 = i - a1 * A;
+      if (i >= AA) continue;
+      const int o = s * AA + i;
+      double acc = part[j * O + o];
+      for (int rr = rr0; rr < nr; rr += J) {
+        unsigned m = msk[rr * SB + s];
+        const float* ar = a_s + (rr << 5) * A + a1;
+        const float* br = b_s + (rr << 5) * A + a2;
+        while (m) {
+          const int q = __ffs(m) - 1;
+          m &= m - 1;
+          acc += lae(ar[q * A], br[q * A]);
+        }
+      }
+      part[j * O + o] = acc;
+    }
+  }
+  tm.sync();
+}
+
+// The c-th locus (window order) of the L whose count exceeds small_max, or
+// -1, for every thread of a block of whole warps: each warp's ballot over
+// a slice of the counts, then thread 0 walks the words.  words: blockDim.x
+// / 32 + 1 words of shared memory.
+__device__ int wp_nth_large(const int* __restrict__ counts, int L,
+                            int small_max, int c, unsigned* words) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5,
+            nw = blockDim.x >> 5;
+  int l = -1;
+  for (int base = 0; l < 0 && base < L; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const unsigned big =
+        __ballot_sync(0xffffffffu, i < L && counts[i] > small_max);
+    if (lane == 0) words[w] = big;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int f = -1;
+      for (int x = 0; x < nw && f < 0; ++x) {
+        unsigned m = words[x];
+        const int nb = __popc(m);
+        if (c < nb) {
+          for (int q = 0; q < c; ++q) m &= m - 1;
+          f = base + 32 * x + __ffs(m) - 1;
+        } else {
+          c -= nb;
+        }
+      }
+      words[nw] = (unsigned)f;
+    }
+    __syncthreads();
+    l = (int)words[nw];
+    __syncthreads();                       // before the words are rewritten
+  }
+  return l;
+}
+
+// J3: one launch a window.  counts (int32): the L loci's counts n.  The
+// first n_large * WP_CLUSTER blocks are the clusters of the n_large loci
+// whose count exceeds small_max (cluster c: the c-th in window order); the
+// small blocks that follow take `teams` teams each, team t of small block
+// b locus b * teams + t where that locus is small.  A small team is SW
+// warps; a large locus's block takes J sub-teams.  CH_S, CH_L: the tile of
+// a small team and of a large block; SB_S, SB_L: the samples of a batch.
 __global__ void __launch_bounds__(WP_THREADS)
 window_posteriors_kernel(const float* __restrict__ LL,
                          const float* __restrict__ p1,
@@ -218,93 +417,106 @@ window_posteriors_kernel(const float* __restrict__ LL,
                          const int64_t* __restrict__ label,
                          const uint8_t* __restrict__ mask,
                          const float* __restrict__ prior, int R, int A, int S,
-                         int CH, float log_half, int* __restrict__ order,
-                         int* __restrict__ starts, double* __restrict__ part,
+                         const int* __restrict__ counts, int L, int n_large,
+                         int small_max, int J, int SW, int teams, int CH_S,
+                         int CH_L, int SB_S, int SB_L, float log_half,
                          float* __restrict__ P, float* __restrict__ totals) {
-  extern __shared__ __align__(16) int wp_smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int KB = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
-  int* start = wp_smem;            // S + 1
-  int* cursor = wp_smem + S + 1;   // S
-  int* kbuf = wp_smem + ((2 * S + 1 + 3) & ~3);   // the sort's, then the tile
-  float* a_s = (float*)kbuf;
-  float* b_s = a_s + CH * A;
-  const long l = blockIdx.x / KB;
-  const int AA = A * A, tid = threadIdx.x, T = blockDim.x;
-  const int g = k * T + tid, G = KB * T;
-  LL += l * R * A;
-  p1 += l * R;
-  p2 += l * R;
-  label += l * R;
-  mask += l * R;
-  prior += l * AA;
-  order += l * R;
-  starts += l * (S + 1);
-  part += l * KB * S * AA;
-  P += l * S * AA;
-  totals += l * S;
-  auto sync = [&] {
-    __threadfence();
-    cluster.sync();
-  };
-  if (k == 0) {
-    block_sort([&](int r) {
-                 const int64_t s = label[r];
-                 return mask[r] && s >= 0 && s < S ? (int)s : -1;
-               },
-               R, S, start, cursor, kbuf, order);
-    for (int x = tid; x <= S; x += T) starts[x] = start[x];
+  constexpr int KB = WP_CLUSTER;
+  extern __shared__ __align__(16) unsigned char wp_raw[];
+  const int AA = A * A, tid = threadIdx.x, lane = tid & 31;
+  const bool large = (int)blockIdx.x < n_large * KB;
+  int l, n, g0, gs, SB, CH, JJ;
+  Team tm;
+  unsigned char* base = wp_raw;
+  int k = 0;
+  if (large) {
+    k = (int)(blockIdx.x % KB);
+    // every block of the cluster finds the same locus
+    l = wp_nth_large(counts, L, small_max, (int)(blockIdx.x / KB),
+                     (unsigned*)wp_raw);
+    if (l < 0) return;
+    n = counts[l];
+    g0 = k, gs = KB;
+    SB = SB_L, CH = CH_L, JJ = J;
+    tm = Team{tid, (int)blockDim.x, 0};
+  } else {
+    const int t = tid / (32 * SW);
+    if (t >= teams) return;
+    l = (int)(blockIdx.x - n_large * KB) * teams + t;
+    if (l >= L) return;
+    n = counts[l];
+    if (n > small_max) return;             // a large locus: its cluster's
+    g0 = 0, gs = 1;
+    SB = SB_S, CH = CH_S, JJ = 1;
+    tm = Team{tid - t * 32 * SW, 32 * SW, SW == 1 ? 1 : 1 + t};
+    base += (long)t * wp_smem(A, SB, CH, 1).total;
   }
-  sync();
-  if (k != 0) {
-    for (int x = tid; x <= S; x += T) start[x] = __ldcg(starts + x);
-    __syncthreads();
-  }
-  const int nq = start[S];         // the sorted reads
-  for (int o0 = 0; o0 < S * AA; o0 += T) {
-    const int i = o0 + tid;
-    int s = 0, a1 = 0, a2 = 0, qa = 0, qb = 0;
-    if (i < S * AA) {
-      s = i / AA;
-      a1 = (i - s * AA) / A;
-      a2 = i - s * AA - a1 * A;
-      qa = start[s];
-      qb = start[s + 1];
+  const WpSmem sm = wp_smem(A, SB, CH, JJ);
+  double* part = (double*)(base + sm.part);
+  float* a_s = (float*)(base + sm.a);
+  float* b_s = (float*)(base + sm.b);
+  float* P_s = (float*)(base + sm.P);
+  float* tot_s = (float*)(base + sm.tot);
+  unsigned* msk = (unsigned*)(base + sm.msk);
+  LL += (long)l * R * A;
+  p1 += (long)l * R;
+  p2 += (long)l * R;
+  label += (long)l * R;
+  mask += (long)l * R;
+  prior += (long)l * AA;
+  P += (long)l * S * AA;
+  totals += (long)l * S;
+  const int w = tm.tid >> 5, nw = tm.W >> 5;
+  for (int s0 = 0; s0 < S; s0 += SB) {
+    const int sb = min(SB, S - s0);
+    wp_team_sums(tm, LL, p1, p2, label, mask, A, s0, sb, n, g0, gs, CH, JJ,
+                 log_half, part, a_s, b_s, msk);
+    // the samples this team or block finishes: all of the batch's (small),
+    // or its (s0 + k, s0 + k + KB, ...) (large); ns of them, stride sk
+    int ns = sb, sk = 1;
+    if (large) {
+      const int O = sb * AA;
+      if (JJ > 1)                          // the sub-teams' sums in order
+        for (int o = tid; o < O; o += tm.W) {
+          double v = 0.0;
+          for (int jj = 0; jj < JJ; ++jj) v += part[jj * O + o];
+          part[o] = v;
+        }
+      cg::this_cluster().sync();           // barrier 1: the partials
+      ns = k < sb ? (sb - k + KB - 1) / KB : 0;
+      sk = KB;
     }
-    double acc = 0.0;
-    for (int q0 = k * CH; q0 < nq; q0 += KB * CH) {   // this block's tiles
-      const int nt = min(CH, nq - q0);
-      __syncthreads();             // the last tile is read
-      for (int e = tid; e < nt * A; e += T) {
-        const int qq = e / A, x = e - qq * A;
-        const int r = __ldcg(order + q0 + qq);
-        const float v = clamp_ll(LL[r * A + x]);
-        a_s[e] = (v + p1[r]) + log_half;
-        b_s[e] = (v + p2[r]) + log_half;
+    for (int x = tm.tid; x < ns * AA; x += tm.W) {
+      const int m = x / AA, i = x - m * AA;
+      double acc;
+      if (large) {
+        cg::cluster_group cluster = cg::this_cluster();
+        acc = 0.0;
+        for (int kk = 0; kk < KB; ++kk)
+          acc += cluster.map_shared_rank(part, kk)[(k + m * KB) * AA + i];
+      } else {
+        acc = part[x];
       }
-      __syncthreads();
-      const int hi = min(qb, q0 + nt) - q0;
-#pragma unroll 4
-      for (int qq = max(qa, q0) - q0; qq < hi; ++qq)
-        acc += lae(a_s[qq * A + a1], b_s[qq * A + a2]);
+      P_s[x] = (float)acc + prior[i];
     }
-    if (i < S * AA) part[(long)k * S * AA + i] = acc;
+    tm.sync();
+    for (int m = w; m < ns; m += nw) {
+      const float* Pm = P_s + m * AA;
+      const float t = warp_lse([&](int i) { return Pm[i]; }, AA);
+      if (lane == 0) {
+        tot_s[m] = t;
+        totals[s0 + (large ? k : 0) + m * sk] = t;
+      }
+    }
+    tm.sync();
+    for (int x = tm.tid; x < ns * AA; x += tm.W) {
+      const int m = x / AA, i = x - m * AA;
+      P[(long)(s0 + (large ? k : 0) + m * sk) * AA + i] = P_s[x] - tot_s[m];
+    }
+    // barrier 2: no block rewrites or leaves its shared memory while
+    // another reads it
+    if (large) cg::this_cluster().sync();
   }
-  sync();
-  // the blocks' partials in block order, rounded once, then the prior
-  for (int i = g; i < S * AA; i += G) {
-    double acc = 0.0;
-    for (int kk = 0; kk < KB; ++kk) acc += __ldcg(part + (long)kk * S * AA + i);
-    P[i] = (float)acc + prior[i % AA];
-  }
-  sync();
-  for (int s = g >> 5; s < S; s += G >> 5) {
-    const float* Ps = P + (long)s * AA;
-    const float t = warp_lse([&](int i) { return __ldcg(Ps + i); }, AA);
-    if ((tid & 31) == 0) totals[s] = t;
-  }
-  sync();
-  for (int i = g; i < S * AA; i += G) P[i] -= __ldcg(totals + i / AA);
 }
 
 // The EM train's device-memory workspace, in floats (the int regions are
@@ -983,45 +1195,71 @@ long em_train_smem_bytes(int A, int S, int n, int chunk, int M, int Qr,
   return em_smem(A, S, n, chunk, M, Qr, keep).total;
 }
 
-long window_posteriors_smem_bytes(int A, int S, int CH) {
-  const long tile = 2L * CH * A * (long)sizeof(float);
-  const long sort = SORT_BATCH * (long)sizeof(int);
-  return ((2L * S + 1 + 3) & ~3L) * (long)sizeof(int)
-         + (tile > sort ? tile : sort);
+// The most samples (at most S) of a J3 batch whose `teams` team regions,
+// with tiles of CH reads and J sub-teams, fit `limit` bytes of shared
+// memory; 0 if not even one sample's do.
+int window_posteriors_batch(int A, int S, int CH, int J, int teams,
+                            long limit) {
+  for (int sb = S; sb > 0; --sb)
+    if (teams * wp_smem(A, sb, CH, J).total <= limit) return sb;
+  return 0;
 }
 
-// J3: a cluster of KB blocks a locus of the (L, R, A) window, each block
-// taking every KB-th tile of CH sorted reads; order (L, R) and starts (L,
-// S + 1) int32 and part (L, KB, S, A, A) float64 are workspace; P (L, S, A,
-// A) and totals (L, S) are written.
+// J3: the (L, R, A) window in one launch.  counts (int32, on the card):
+// each locus's count, those above small_max the n_large large loci
+// (window_posteriors_kernel).  A large locus takes a cluster of
+// WP_CLUSTER blocks of WP_THREADS threads in J sub-teams, tiles of CH_L
+// reads, batches of SB_L samples; a small one a team of SW warps in one
+// of the n_small_blocks blocks, tiles of CH_S reads, batches of SB_S
+// samples.  P (L, S, A, A) and totals (L, S) are written.
 int window_posteriors(const float* LL, const float* p1, const float* p2,
                       const int64_t* label, const uint8_t* mask,
-                      const float* prior, int L, int R, int A, int S, int KB,
-                      int CH, float log_half, int* order, int* starts,
-                      double* part, float* P, float* totals, void* stream) {
-  if (L < 1 || R < 1 || A < 1 || S < 1 || KB < 1 || KB > 8 || CH < 1)
+                      const float* prior, int L, int R, int A, int S,
+                      const int* counts, int n_large, int n_small_blocks,
+                      int small_max, int J, int SW, int teams, int CH_S,
+                      int CH_L, int SB_S, int SB_L, float log_half, float* P,
+                      float* totals, void* stream) {
+  const long U = (long)SB_L * (((long)A * A + 31) & ~31L);
+  if (L < 1 || R < 1 || A < 1 || S < 1 || n_large < 0 || n_large > L
+      || n_small_blocks < 0
+      || (n_large < L && (long)n_small_blocks * teams < L)
+      || n_large + n_small_blocks < 1 || small_max < 0 || J < 1 || SW < 1
+      || teams < 1 || 32 * SW * teams > WP_THREADS || teams > 15
+      || CH_S < 32 || CH_S % 32 || CH_L < 32 || CH_L % 32 || SB_S < 1
+      || SB_S > S || SB_L < 1 || SB_L > S
+      || (J > 1 && (SB_L < S || J * U > WP_THREADS))
+      || (n_large && n_small_blocks % WP_CLUSTER))
     return (int)cudaErrorInvalidValue;
   void (*kern)(const float*, const float*, const float*, const int64_t*,
-               const uint8_t*, const float*, int, int, int, int, float, int*,
-               int*, double*, float*, float*) = window_posteriors_kernel;
-  const long smem = window_posteriors_smem_bytes(A, S, CH);
+               const uint8_t*, const float*, int, int, int, const int*, int,
+               int, int, int, int, int, int, int, int, int, float, float*,
+               float*) = window_posteriors_kernel;
+  long smem = 0;
+  if (n_small_blocks) smem = teams * wp_smem(A, SB_S, CH_S, 1).total;
+  if (n_large) {
+    const long big = wp_smem(A, SB_L, CH_L, J).total;
+    smem = big > smem ? big : smem;
+  }
   int e = set_smem(kern, smem);
   if (e) return e;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = KB;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)L * KB);
-  cfg.blockDim = dim3(WP_THREADS);
+  cfg.gridDim = dim3((unsigned)(n_large * WP_CLUSTER + n_small_blocks));
+  cfg.blockDim = dim3(n_large ? WP_THREADS : 32 * SW * teams);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  if (n_large) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = WP_CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
   cudaError_t ce = cudaLaunchKernelEx(&cfg, kern, LL, p1, p2, label, mask,
-                                      prior, R, A, S, CH, log_half, order,
-                                      starts, part, P, totals);
+                                      prior, R, A, S, counts, L, n_large,
+                                      small_max, J, SW, teams, CH_S, CH_L,
+                                      SB_S, SB_L, log_half, P, totals);
   if (ce != cudaSuccess) return (int)ce;
   return (int)cudaGetLastError();
 }

@@ -120,9 +120,10 @@ def _bind(lib) -> None:
     lib.em_train_workspace_floats.restype = ctypes.c_long
     lib.em_train_smem_bytes.argtypes = [i] * 7
     lib.em_train_smem_bytes.restype = ctypes.c_long
-    lib.window_posteriors_smem_bytes.argtypes = [i, i, i]
-    lib.window_posteriors_smem_bytes.restype = ctypes.c_long
-    lib.window_posteriors.argtypes = [p] * 6 + [i] * 6 + [f] + [p] * 6
+    lib.window_posteriors_batch.argtypes = [i] * 5 + [ctypes.c_long]
+    lib.window_posteriors_batch.restype = i
+    lib.window_posteriors.argtypes = ([p] * 6 + [i] * 4 + [p] + [i] * 10
+                                      + [f] + [p] * 3)
     lib.window_posteriors.restype = i
     lib.em_train.argtypes = [p] * 11 + [i] * 6 + [f] * 3 + [i] * 4 + [p] * 3
     lib.em_train.restype = i

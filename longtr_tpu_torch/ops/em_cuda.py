@@ -2,8 +2,10 @@
 posteriors (J3) and the EM stutter train loop (J4), one launch each.
 
 - :func:`window_posteriors` computes the posteriors of a padded window of
-  loci, one thread-block cluster a locus (:func:`window_plan`); the plain
-  version is
+  loci in one launch: each small locus a team of warps, each large one a
+  thread-block cluster that splits its reads (:func:`window_plan`), the
+  kernel mapping its blocks to loci from their counts; the plain version
+  is
   :func:`longtr_tpu_torch.ops.posterior.calc_log_sample_posteriors`.
   ``batched_posteriors`` launches it once a window on each shard's card.
 - :func:`em_train` runs the whole EM train loop of one locus (E step,
@@ -31,6 +33,8 @@ plain loop on a CPU mesh).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -62,11 +66,23 @@ smem_limit_bytes = None
 # Cluster barriers an iteration of each branch of the EM kernel.
 BARRIERS = {"kept": 2, "recomputed": 3}
 
-# The window kernel's split of a locus: a cluster of up to 8 blocks of
-# WINDOW_THREADS where the locus has fewer outputs (S * A * A) than 8
-# blocks have threads, block k taking every KB-th tile of CH sorted reads
-# (their operands staged in WINDOW_TILE_FLOATS floats of shared memory at
-# most); each block's float64 partials are added in block order.
+# The window kernel's plan (csrc/em.cu::window_posteriors_kernel).  Each
+# sample's A*A outputs take whole warps (S * ceil(A*A / 32) warps).  A
+# locus of n reads is small where a thread of its team (those warps, at
+# most WINDOW_TEAM_WARPS) walks ceil(n / S) reads for each of its outputs
+# in at most WINDOW_SMALL_STEPS steps; teams of WINDOW_TEAM_WARPS warps at
+# most share a block.  A larger locus takes a cluster of WINDOW_CLUSTER
+# blocks (csrc/em.cu's WP_CLUSTER) of WINDOW_THREADS threads, block k
+# summing the rounds of 32 reads k, k + 8, k + 16, ..., its warps in J
+# sub-teams (the block's rounds j, j + J, ...) where the outputs' warps
+# leave threads idle; the partials are added in sub-team order, then in
+# block order.  A large block stages tiles of WINDOW_TILE_FLOATS floats of
+# operands at most.  The step bound lies between the two routes'
+# crossings in chip_smoke.py's sweep on an H100 (PERF.md); a test may set
+# WINDOW_SMALL_STEPS to send loci to either route.
+WINDOW_SMALL_STEPS = 400
+WINDOW_TEAM_WARPS = 4
+WINDOW_CLUSTER = 8
 WINDOW_THREADS = 512
 WINDOW_TILE_FLOATS = 8192
 
@@ -105,21 +121,75 @@ WINDOW_NAMES = ("log_aln_probs", "log_p1", "log_p2", "sample_label",
                 "read_mask", "prior")
 
 
-def window_plan(num_samples: int, num_alleles: int):
-    """(KB, CH): the window kernel's blocks a locus and reads a tile."""
-    outputs = num_samples * num_alleles * num_alleles
-    kb = max(1, min(8, 8 * WINDOW_THREADS // outputs))
-    ch = max(1, min(128, WINDOW_TILE_FLOATS // (2 * num_alleles)))
-    return kb, ch
+class WindowPlan(NamedTuple):
+    """How the window kernel takes a window padded to A alleles and S
+    samples: a locus of at most ``small_max`` reads is small, a team of
+    ``sw`` warps, ``teams`` teams a block; a larger one takes a cluster of
+    WINDOW_CLUSTER blocks, ``j`` sub-teams a block."""
+    j: int
+    sw: int
+    teams: int
+    small_max: int
+
+
+def window_plan(num_alleles: int, num_samples: int) -> WindowPlan:
+    """The window kernel's plan for a window padded to ``num_alleles`` and
+    ``num_samples``.  A locus's route follows from its own count against
+    ``small_max``, and j, which fixes the order of a large locus's sums,
+    from (A, S) alone: a locus gets the same bits in any window."""
+    A, S = int(num_alleles), int(num_samples)
+    warps = S * -(-A * A // 32)     # each sample's outputs whole warps
+    sw = min(WINDOW_TEAM_WARPS, warps)
+    # ceil(n / S) * ceil(warps / sw) <= WINDOW_SMALL_STEPS
+    small_max = S * (WINDOW_SMALL_STEPS // -(-warps // sw))
+    return WindowPlan(j=max(1, WINDOW_THREADS // (32 * warps)), sw=sw,
+                      teams=WINDOW_TEAM_WARPS // sw,
+                      small_max=min(small_max, _I32))
+
+
+def window_grid(plan: WindowPlan, counts) -> tuple[int, int]:
+    """(large loci, small blocks) of the kernel's grid for loci of
+    ``counts`` reads: a cluster each large locus, then blocks of ``teams``
+    slots for the window's loci in order (a large locus's slot idles),
+    whole clusters of them where the grid holds a cluster."""
+    L = len(counts)
+    n_large = int(np.count_nonzero(np.asarray(counts) > plan.small_max))
+    n_small = -(-L // plan.teams) if n_large < L else 0
+    if n_large:
+        n_small = -(-n_small // WINDOW_CLUSTER) * WINDOW_CLUSTER
+    return n_large, n_small
+
+
+@functools.lru_cache(maxsize=None)
+def _window_launch(R, A, S, device_index, small_steps):
+    """(plan, tile of a small team, of a large block, samples of a batch of
+    each) for a window padded to (R, A, S) on a card, all from the padded
+    shape: so is the summation order of each locus."""
+    plan = window_plan(A, S)
+    lib = _build.load_library()
+    ch_l = min(512, max(32, WINDOW_TILE_FLOATS // (2 * A) // 32 * 32))
+    ch_s = min(ch_l, max(32, -(-min(R, plan.small_max) // 32) * 32))
+    limit = max_smem_optin(torch.device("cuda", device_index))
+    sb_s = int(lib.window_posteriors_batch(A, S, ch_s, 1, plan.teams, limit))
+    sb_l = int(lib.window_posteriors_batch(A, S, ch_l, plan.j, 1, limit))
+    if not (sb_s and sb_l):
+        raise ValueError(f"A={A}: one sample's sums and a tile of 32 reads "
+                         f"take more than the card's {limit} bytes of "
+                         "shared memory")
+    return plan, ch_s, ch_l, sb_s, sb_l
 
 
 def window_posteriors(log_aln_probs, log_p1, log_p2, sample_label, read_mask,
-                      prior, num_samples: int):
+                      prior, num_samples: int, counts):
     """(posteriors (L, S, A, A), totals (L, S)) of a padded window: the
     arguments of ``calc_log_sample_posteriors`` with one leading locus
     axis, log_aln_probs (L, R, A) float32, log_p1/log_p2 (L, R) float32,
     sample_label (L, R) int64, read_mask (L, R) bool, prior (L, A, A)
-    float32."""
+    float32.  ``counts`` (host ints, one a locus, best an int32 array,
+    which is taken as it is): the kernel reads rows
+    [0, counts[i]) of locus i, and every row past them must be masked
+    (``pad_window`` puts locus i's R_i reads first); the plain version
+    reads the mask alone."""
     args = (log_aln_probs, log_p1, log_p2, sample_label, read_mask, prior)
     if log_aln_probs.device.type == "cpu":
         P, totals, _ = calc_log_sample_posteriors(
@@ -140,23 +210,29 @@ def window_posteriors(log_aln_probs, log_p1, log_p2, sample_label, read_mask,
     if R * A > _I32 or S * A * A > _I32:
         raise ValueError(f"R={R}, A={A}, S={S}: a locus indexes its "
                          "R * A inputs and S * A * A outputs in 32 bits")
+    counts = np.asarray(counts)
+    if counts.dtype != np.int32:          # ints past int32 raise below
+        counts = counts.astype(np.int64)
+    if counts.shape != (L,) or (L and (counts.min() < 0
+                                       or counts.max() > R)):
+        raise ValueError(f"counts must be {L} values in [0, {R}]")
+    counts = np.ascontiguousarray(counts, np.int32)
     dev = log_aln_probs.device
     P = torch.empty((L, S, A, A), dtype=f32, device=dev)
     totals = torch.empty((L, S), dtype=f32, device=dev)
     if L == 0:
         return P, totals
-    lib = _build.load_library()
-    kb, ch = window_plan(S, A)
-    _smem_fits(lib.window_posteriors_smem_bytes(A, S, ch), dev,
-               f"A={A}, S={S}")
-    order = torch.empty((L, R), dtype=torch.int32, device=dev)
-    starts = torch.empty((L, S + 1), dtype=torch.int32, device=dev)
-    part = torch.empty(L * kb * S * A * A, dtype=torch.float64, device=dev)
+    plan, ch_s, ch_l, sb_s, sb_l = _window_launch(
+        R, A, S, dev.index if dev.index is not None
+        else torch.cuda.current_device(), WINDOW_SMALL_STEPS)
+    n_large, n_small = window_grid(plan, counts)
+    # pageable: the copy is staged before it returns, and waits for nothing
+    counts_d = torch.from_numpy(counts).to(dev, non_blocking=True)
     with torch.cuda.device(dev):
-        rc = lib.window_posteriors(*[_ptr(x) for x in args], L, R, A, S, kb,
-                                   ch, _LOG_HALF, _ptr(order), _ptr(starts),
-                                   _ptr(part), _ptr(P), _ptr(totals),
-                                   _stream(dev))
+        rc = _build.load_library().window_posteriors(
+            *[_ptr(x) for x in args], L, R, A, S, _ptr(counts_d), n_large,
+            n_small, plan.small_max, plan.j, plan.sw, plan.teams, ch_s, ch_l,
+            sb_s, sb_l, _LOG_HALF, _ptr(P), _ptr(totals), _stream(dev))
     _raise_on(rc, "window_posteriors")
     launches["window_posteriors"] += 1
     return P, totals

@@ -145,7 +145,8 @@ def batched_posteriors(loci, device=None, mesh=None):
     than one shard, shard k takes the k-th slice of ceil(L / shards) loci
     on its device; each locus's reduction stays on one device, so the
     results are the same for any mesh size.  A card takes its slice in one
-    launch of the window kernel, one thread-block cluster a locus.
+    launch of the window kernel, which sizes each locus's work by its own
+    read count (``em_cuda.window_plan``).
 
     Returns a list of (posteriors (S_i, A_i, A_i), totals (S_i,)) float32
     numpy arrays.
@@ -154,13 +155,15 @@ def batched_posteriors(loci, device=None, mesh=None):
     devices = (mesh.devices if mesh is not None and mesh.size > 1
                else (select_device(device),))
     arrays, S_max = pad_window(loci)
+    counts = np.array([l["log_aln_probs"].shape[0] for l in loci], np.int32)
     L = len(loci)
     step = -(-L // len(devices))
     shards = []
     for k, dev in enumerate(devices[:-(-L // step)]):
+        sl = slice(k * step, (k + 1) * step)
         shards.append(window_posteriors(
-            *(torch.from_numpy(x[k * step:(k + 1) * step]).to(dev)
-              for x in arrays), S_max))
+            *(torch.from_numpy(x[sl]).to(dev) for x in arrays), S_max,
+            counts=counts[sl]))
     P_all = np.concatenate([P.cpu().numpy() for P, _t in shards])
     totals = np.concatenate([t.cpu().numpy() for _P, t in shards])
     out = []

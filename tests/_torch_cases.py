@@ -75,6 +75,35 @@ def posterior_window(seed=21):
     return [random_case(rng, **kw) for kw in shapes]
 
 
+def real_window(seed=12, L=256):
+    """A window at the shape the 512-STR catalog sends with
+    LONGTR_DEVICE_POSTERIOR=1, (L, R_max, A_max, S_max) = (256, 60, 4, 3):
+    each locus 30-60 reads of 3 samples and 1-4 alleles, its reads grouped
+    by sample (as the pipeline lists them) or, one locus in four, in a
+    random order; the first locus at the full (60, 4)."""
+    rng = np.random.default_rng(seed)
+    loci = []
+    for i in range(L):
+        R, A = (60, 4) if i == 0 else (int(rng.integers(30, 61)),
+                                       int(rng.integers(1, 5)))
+        c = random_case(rng, R=R, A=A, S=3)
+        if i % 4:
+            c["sample_label"] = np.sort(c["sample_label"])
+        loci.append(c)
+    return loci
+
+
+def mixed_window(seed=13, L=256):
+    """``real_window``'s loci with one of them, the 101st (or the middle
+    one of fewer), replaced by a VNTR-sized locus of R=2000 reads, A=12
+    alleles and S=3 samples: a window that holds both routes of the
+    window kernel."""
+    loci = real_window(seed, L)
+    loci[min(100, L // 2)] = random_case(np.random.default_rng(seed + 1),
+                                         R=2000, A=12, S=3)
+    return loci
+
+
 def assert_posteriors_close(got_P, got_tot, want_P, want_tot):
     """tests/test_posterior.py's tolerances on one locus: log posteriors
     within atol 5e-3 where the reference is above -50, totals within rtol

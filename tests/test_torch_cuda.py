@@ -38,8 +38,9 @@ from longtr_tpu_torch.pipeline.mode_b import ARTIFACT_KEYS, ROW_KEYS
 
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_cases import (assert_em_close, assert_posteriors_close,  # noqa: E402
-                          cohort_case, em_case, plain_em_train,
-                          posterior_window, random_case, realistic_em_locus)
+                          cohort_case, em_case, mixed_window, plain_em_train,
+                          posterior_window, random_case, real_window,
+                          realistic_em_locus)
 
 BASES = np.array(list("ACGT"))
 CUSTOM = [-2.0, -0.3, -1.5, -0.25, -0.0001, -8.0, -9.0]
@@ -831,27 +832,99 @@ def test_mode_b_artifacts_warp_refuses_shapes_it_cannot_take(cuda_device,
 # The window posteriors (J3) and the EM train loop (J4), csrc/em.cu
 # ---------------------------------------------------------------------------
 
-@pytest.mark.gpu
-def test_window_posteriors_kernel_matches_plain(cuda_device):
-    """The window kernel on a padded window equals the plain posteriors on
-    the card at the tolerances, locus by locus, and a second launch gives
-    the same bits."""
-    loci = posterior_window()
+# posterior_window: unequal loci, its 2000-read locus large; real: the
+# 512-STR catalog's window, (256, 60, 4, 3), every locus small; mixed: one
+# R=2000, A=12 locus among 255 small ones
+J3_WINDOWS = {"unequal": posterior_window, "real": real_window,
+              "mixed": mixed_window}
+
+
+def _j3_on_card(loci, device):
+    """The window kernel and the plain version on the card on ``loci``'s
+    padded window: (P, totals) of two launches and of the plain version."""
     arrays, S_max = posterior.pad_window(loci)
-    g = [torch.from_numpy(x).to(cuda_device) for x in arrays]
-    em_cuda.reset_launches()
-    P, tot = em_cuda.window_posteriors(*g, S_max)
-    P2, tot2 = em_cuda.window_posteriors(*g, S_max)
+    g = [torch.from_numpy(x).to(device) for x in arrays]
+    counts = [l["log_aln_probs"].shape[0] for l in loci]
+    one = em_cuda.window_posteriors(*g, S_max, counts)
+    two = em_cuda.window_posteriors(*g, S_max, counts)
     want_P, want_tot, _ = posterior.calc_log_sample_posteriors(
         *g[:4], S_max, g[5], read_mask=g[4])
     torch.cuda.synchronize()
-    assert em_cuda.launches == {"window_posteriors": 2, "em_train": 0}
-    assert torch.equal(P, P2) and torch.equal(tot, tot2)
+    return one, two, (want_P, want_tot)
+
+
+def _assert_loci_close(loci, got, want):
     for i, l in enumerate(loci):
         A, S = l["log_aln_probs"].shape[1], l["num_samples"]
-        assert_posteriors_close(P[i, :S, :A, :A].cpu(), tot[i, :S].cpu(),
-                                want_P[i, :S, :A, :A].cpu(),
-                                want_tot[i, :S].cpu())
+        assert_posteriors_close(got[0][i, :S, :A, :A].cpu(),
+                                got[1][i, :S].cpu(),
+                                want[0][i, :S, :A, :A].cpu(),
+                                want[1][i, :S].cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", sorted(J3_WINDOWS))
+def test_window_posteriors_kernel_matches_plain(cuda_device, window):
+    """The window kernel on a padded window equals the plain posteriors on
+    the card at the tolerances, locus by locus, in one launch, and a
+    second launch gives the same bits."""
+    loci = J3_WINDOWS[window]()
+    em_cuda.reset_launches()
+    one, two, want = _j3_on_card(loci, cuda_device)
+    assert em_cuda.launches == {"window_posteriors": 2, "em_train": 0}
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    _assert_loci_close(loci, one, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("small_steps", [0, 10 ** 9])
+@pytest.mark.parametrize("window", ["real", "unequal"])
+def test_window_posteriors_kernel_either_route(cuda_device, monkeypatch,
+                                               window, small_steps):
+    """Every locus sent to the large route (the real window's three
+    samples' warps in J = 5 sub-teams of a block) or to the small one (the
+    unequal window's 2000-read locus too): the kernel meets the tolerances
+    against the plain version and two launches give the same bits."""
+    monkeypatch.setattr(em_cuda, "WINDOW_SMALL_STEPS", small_steps)
+    loci = J3_WINDOWS[window]()
+    one, two, want = _j3_on_card(loci, cuda_device)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    _assert_loci_close(loci, one, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("small_steps", [0, 10 ** 9])
+def test_window_posteriors_kernel_takes_samples_in_batches(
+        cuda_device, monkeypatch, small_steps):
+    """A 300-sample cohort locus at A=10, whose 30000 float64 sums do not
+    fit a block's shared memory: both routes take the samples in batches
+    and meet the tolerances against the plain version."""
+    monkeypatch.setattr(em_cuda, "WINDOW_SMALL_STEPS", small_steps)
+    loci = [random_case(np.random.default_rng(41), R=1500, A=10, S=300),
+            random_case(np.random.default_rng(42), R=90, A=4, S=300)]
+    one, two, want = _j3_on_card(loci, cuda_device)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    _assert_loci_close(loci, one, want)
+
+
+@pytest.mark.gpu
+def test_window_posteriors_kernel_maps_many_large_loci(cuda_device,
+                                                       monkeypatch):
+    """A window of 1100 loci of 5-59 reads, those of more than 30 sent to
+    the large route: the kernel finds the clusters' loci past its first
+    ballot slice of 512 counts, each locus meets the tolerances against
+    the plain version and two launches give the same bits."""
+    monkeypatch.setattr(em_cuda, "WINDOW_SMALL_STEPS", 10)
+    rng = np.random.default_rng(51)
+    loci = [random_case(rng, R=int(rng.integers(5, 60)), A=4, S=3)
+            for _ in range(1100)]
+    plan = em_cuda.window_plan(4, 3)
+    n_large, _n_small = em_cuda.window_grid(
+        plan, [l["log_aln_probs"].shape[0] for l in loci])
+    assert plan.small_max == 30 and 300 < n_large < 800
+    one, two, want = _j3_on_card(loci, cuda_device)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    _assert_loci_close(loci, one, want)
 
 
 @pytest.mark.gpu
@@ -869,7 +942,7 @@ def test_window_posteriors_kernel_takes_an_infinite_prior(cuda_device):
         cuda_device)
     mask = torch.ones_like(lab, dtype=torch.bool)
     pr = torch.from_numpy(prior[None]).to(cuda_device)
-    P, tot = em_cuda.window_posteriors(*g, lab, mask, pr, 2)
+    P, tot = em_cuda.window_posteriors(*g, lab, mask, pr, 2, [30])
     want_P, want_tot, _ = posterior.calc_log_sample_posteriors(
         *g, lab, 2, pr, read_mask=mask)
     assert_posteriors_close(P[0].cpu(), tot[0].cpu(), want_P[0].cpu(),
@@ -877,11 +950,12 @@ def test_window_posteriors_kernel_takes_an_infinite_prior(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shards", [2, 3])
-def test_window_posteriors_mesh_bit_identical(cuda_device, shards):
+@pytest.mark.parametrize("shards", [2, 3, 4])
+@pytest.mark.parametrize("window", sorted(J3_WINDOWS))
+def test_window_posteriors_mesh_bit_identical(cuda_device, window, shards):
     """batched_posteriors on one card and split over a mesh of shards of
     it: one launch a shard that holds loci, the same bits."""
-    loci = posterior_window()
+    loci = J3_WINDOWS[window]()
     em_cuda.reset_launches()
     one = posterior.batched_posteriors(loci, cuda_device)
     assert em_cuda.launches["window_posteriors"] == 1
@@ -1054,12 +1128,21 @@ def test_em_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="multiple of n_shards"):
         em_cuda.em_train(rep, eff, inf, p1, p2, lab, cat, wi, wo, valid,
                          init, n_shards=R + 1, **kw)
+    window = [torch.zeros((1, 4, 2), device=cuda_device),
+              torch.zeros((1, 4), device=cuda_device),
+              torch.zeros((1, 4), device=cuda_device),
+              torch.zeros((1, 4), dtype=torch.int64, device=cuda_device),
+              torch.ones((1, 4), dtype=torch.bool, device=cuda_device),
+              torch.zeros((1, 2, 2), device=cuda_device)]
     with pytest.raises(ValueError, match="dtype"):
-        em_cuda.window_posteriors(
-            torch.zeros((1, 4, 2), device=cuda_device),
-            torch.zeros((1, 4), device=cuda_device),
-            torch.zeros((1, 4), device=cuda_device),
-            torch.zeros((1, 4), dtype=torch.int32, device=cuda_device),
-            torch.ones((1, 4), dtype=torch.bool, device=cuda_device),
-            torch.zeros((1, 2, 2), device=cuda_device), 1)
+        em_cuda.window_posteriors(*window[:3], window[3].int(), *window[4:],
+                                  1, [4])
+    with pytest.raises(ValueError, match="counts"):
+        em_cuda.window_posteriors(*window, 1, [5])
+    with pytest.raises(ValueError, match="counts"):
+        em_cuda.window_posteriors(*window, 1, [4, 4])
+    with pytest.raises(ValueError, match="counts"):
+        em_cuda.window_posteriors(*window, 1, [-1])
+    with pytest.raises(ValueError, match="shape"):
+        em_cuda.window_posteriors(*window[:5], window[5][:, :1], 1, [4])
     assert not any(em_cuda.launches.values())
