@@ -431,6 +431,7 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     import torch
     from longtr_tpu_torch.ops.mode_b_artifacts import mode_b_artifacts_plain
     from longtr_tpu_torch.pipeline.mode_b import ModeBAligner
+    from longtr_tpu_torch.utils.timers import record_spans
     from test_torch_cuda import (ARTIFACT_KEYS, TABLE_KEYS, artifact_case,
                                  synthetic_tables)
 
@@ -515,8 +516,7 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
              "(workspace)")
     # (c) marginalized LLs: the card's f32 rows against the host f64 path
     # on the first 64 reads (the host path takes ~100 ms a read)
-    timings = {}
-    lls = aligner.score_reads_batch_finish(prep, timings)
+    lls = aligner.score_reads_batch_finish(prep)
     t = time.perf_counter()
     host = np.stack([aligner.score_read(a, s)
                      for a, s in zip(alns[:64], seeds[:64])])
@@ -562,13 +562,18 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     bound_ms, bound_by = mode_b_bound(g, n_d)
     # pairs/s as bench.py:234 defines it: (prepare + finish) per rep
     reps, phase = 3, {"prepare_s": 0.0}
+    spans = record_spans(True)
     t = time.perf_counter()
     for _ in range(reps):
         t0 = time.perf_counter()
         p = aligner.score_reads_batch_prepare(alns, seeds)
         phase["prepare_s"] += time.perf_counter() - t0
-        aligner.score_reads_batch_finish(p, phase)
+        aligner.score_reads_batch_finish(p)
     rep_s = (time.perf_counter() - t) / reps
+    record_spans(False)
+    for key, name in (("dispatch_s", "Mode B device"),
+                      ("marginalize_s", "Mode B marginalize")):
+        phase[key] = sum(b - a for n, a, b, *_ in spans if n == name)
     pairs = len(alns) * aligner.hap.num_combs()
     copied = sum(prep[k].nbytes for k in TABLE_KEYS if k != "A_tab") \
         + sum(prep[k].nbytes for k in ARTIFACT_KEYS)

@@ -26,6 +26,7 @@ import numpy as np
 from dataclasses import dataclass, field
 
 from longtr_tpu_torch.io.bgzf import BgzfReader
+from longtr_tpu_torch.utils.timers import span
 
 FLANK_SIZE = 200  # bam_io.h:28
 
@@ -679,73 +680,75 @@ class BamReader:
                 cached = w
                 break
         if cached is None:
-            lo = c_start
-            # adaptive window: one-off fetches pay a small decode; sorted
-            # scans quickly grow to the full window size
-            grow = getattr(self, "_window_bytes", self.WINDOW_BYTES >> 4)
-            self._window_bytes = min(grow * 2, self.WINDOW_BYTES)
-            hi = min(max(c_end, lo + grow), file_size)
-            self._bgzf._fh.seek(lo)
-            comp = self._bgzf._fh.read(hi - lo)
-            # A partial trailing block is dropped by the inflater; hi
-            # still covers the chunk-end block in full (see c_end).
-            data = native.bgzf_inflate_all(comp)
-            if data is None:
-                return None
-            batch = native.bam_decode(data[within:])
-            if batch is None:
-                return None
-            # positions reset at chromosome boundaries, so record the
-            # contiguous index run of each ref_id for a valid bisect
-            ref_ids = batch.fixed[:, 0]
-            positions = batch.fixed[:, 1].tolist()
-            runs = {}
-            bounds = np.flatnonzero(np.diff(ref_ids)) + 1 \
-                if batch.n else np.zeros(0, np.int64)
-            starts_idx = [0] + list(bounds)
-            ends_idx = list(bounds) + [batch.n]
-            for lo2, hi2 in zip(starts_idx, ends_idx):
-                if lo2 < hi2:
-                    runs[int(ref_ids[lo2])] = [lo2, hi2]
-            max_span = int(batch.ref_lens.max()) if batch.n else 1
-            max_span = max(max_span, 1)
-            cached = [lo, within, hi, batch, positions, runs, max_span, {}]
-            self._win_cache.append(cached)
-            if len(self._win_cache) > 2:
-                self._win_cache.pop(0)
+            with span("BAM window decode"):
+                lo = c_start
+                # adaptive window: one-off fetches pay a small decode; sorted
+                # scans quickly grow to the full window size
+                grow = getattr(self, "_window_bytes", self.WINDOW_BYTES >> 4)
+                self._window_bytes = min(grow * 2, self.WINDOW_BYTES)
+                hi = min(max(c_end, lo + grow), file_size)
+                self._bgzf._fh.seek(lo)
+                comp = self._bgzf._fh.read(hi - lo)
+                # A partial trailing block is dropped by the inflater; hi
+                # still covers the chunk-end block in full (see c_end).
+                data = native.bgzf_inflate_all(comp)
+                if data is None:
+                    return None
+                batch = native.bam_decode(data[within:])
+                if batch is None:
+                    return None
+                # positions reset at chromosome boundaries, so record the
+                # contiguous index run of each ref_id for a valid bisect
+                ref_ids = batch.fixed[:, 0]
+                positions = batch.fixed[:, 1].tolist()
+                runs = {}
+                bounds = np.flatnonzero(np.diff(ref_ids)) + 1 \
+                    if batch.n else np.zeros(0, np.int64)
+                starts_idx = [0] + list(bounds)
+                ends_idx = list(bounds) + [batch.n]
+                for lo2, hi2 in zip(starts_idx, ends_idx):
+                    if lo2 < hi2:
+                        runs[int(ref_ids[lo2])] = [lo2, hi2]
+                max_span = int(batch.ref_lens.max()) if batch.n else 1
+                max_span = max(max_span, 1)
+                cached = [lo, within, hi, batch, positions, runs, max_span, {}]
+                self._win_cache.append(cached)
+                if len(self._win_cache) > 2:
+                    self._win_cache.pop(0)
         _, _, _, batch, positions, runs, max_span, templates = cached
         run = runs.get(rid)
         if run is None:
             return []
-        out = []
-        i0 = bisect_left(positions, start - max_span, run[0], run[1])
-        for i in range(i0, run[1]):
-            tmpl = templates.get(i)
-            if tmpl is None:
-                ref_id, pos, mapq, flag, mref, mpos, tlen, l_seq = \
-                    batch.record_fields(i)
-                if ref_id != rid or pos >= end:
+        with span("BAM record build"):
+            out = []
+            i0 = bisect_left(positions, start - max_span, run[0], run[1])
+            for i in range(i0, run[1]):
+                tmpl = templates.get(i)
+                if tmpl is None:
+                    ref_id, pos, mapq, flag, mref, mpos, tlen, l_seq = \
+                        batch.record_fields(i)
+                    if ref_id != rid or pos >= end:
+                        break
+                    ref_len = int(batch.ref_lens[i])
+                    if pos + ref_len <= start:
+                        continue
+                    tmpl = BamRecord.raw(
+                        batch.name(i), flag, ref_id, pos, mapq,
+                        None, mref, mpos, tlen, batch.seq(i),
+                        batch.qual(i), _decode_tags(batch.tag_blob(i), 0),
+                        self.path, self.header.ref_name(ref_id),
+                        self.header.ref_name(mref), pos + ref_len)
+                    co = batch.offsets[i, 2]
+                    cn = batch.offsets[i, 3]
+                    tmpl._cig_cols = (batch.cigar_ops[co: co + cn],
+                                      batch.cigar_lens[co: co + cn])
+                    templates[i] = tmpl
+                elif tmpl.ref_id != rid or tmpl.pos >= end:
                     break
-                ref_len = int(batch.ref_lens[i])
-                if pos + ref_len <= start:
+                if tmpl.end_pos <= start:
                     continue
-                tmpl = BamRecord.raw(
-                    batch.name(i), flag, ref_id, pos, mapq,
-                    None, mref, mpos, tlen, batch.seq(i),
-                    batch.qual(i), _decode_tags(batch.tag_blob(i), 0),
-                    self.path, self.header.ref_name(ref_id),
-                    self.header.ref_name(mref), pos + ref_len)
-                co = batch.offsets[i, 2]
-                cn = batch.offsets[i, 3]
-                tmpl._cig_cols = (batch.cigar_ops[co: co + cn],
-                                  batch.cigar_lens[co: co + cn])
-                templates[i] = tmpl
-            elif tmpl.ref_id != rid or tmpl.pos >= end:
-                break
-            if tmpl.end_pos <= start:
-                continue
-            # fresh copy: downstream trims mutate records in place
-            out.append(tmpl.clone())
+                # fresh copy: downstream trims mutate records in place
+                out.append(tmpl.clone())
         return out
 
 

@@ -25,7 +25,6 @@ loop in Python (cheap for period-1 blocks — see ops.stutter_hmm).
 
 from __future__ import annotations
 
-import time
 
 import numpy as np
 import torch
@@ -35,6 +34,7 @@ from longtr_tpu_torch.ops.mode_b_artifacts import prefix_doubles
 from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE, MIN_SEED_DIST, StutterAligner, fast_lse
 from longtr_tpu_torch.utils.base_quality import log_prob_correct, log_prob_error
 from longtr_tpu_torch.utils.mathops import int_log
+from longtr_tpu_torch.utils.timers import span
 from longtr_tpu_torch.ops.mode_b_cuda import mode_b_artifacts
 from longtr_tpu_torch.ops.mode_b_device import (_pad_to, mode_b_cols,
                                                 mode_b_cols_plain)
@@ -629,48 +629,43 @@ class ModeBAligner:
                 blocks, saln, bi, opt, segs, n_d, L_max, enc=enc))
         return np.concatenate(tables).astype(dtype)
 
-    def score_reads_batch_finish(self, prep, timings=None):
+    def score_reads_batch_finish(self, prep):
         """Finish phase: the artifact tables and the row DP on
         ``self.device`` (with ``reference=True``: the host's tables and the
         plain rows), then the f64 seed marginalization on the host.
 
-        ``timings`` (optional dict) accumulates the two sub-phase walls
-        under ``dispatch_s`` (copy to the device, the two kernels and the
-        copy back, which waits for them) and ``marginalize_s`` (the f64
-        seed marginalization whose reduction order is part of the parity
-        contract, DESIGN.md §2)."""
-        t0 = time.time()
-        if "A_tab" in prep:
-            cols_fn = mode_b_cols_plain
-            A = torch.from_numpy(prep["A_tab"]).to(self.device)
-        else:
-            cols_fn = mode_b_cols
-            A = self.artifact_tables(prep)
-        args = [A if k == "A_tab" else torch.from_numpy(prep[k]).to(self.device)
-                for k in ROW_KEYS]
-        cols = cols_fn(*args, n_d=prep["n_d"])
-        cols = cols.cpu().numpy().astype(np.float64)
-        t1 = time.time()
-        if timings is not None:
-            timings["dispatch_s"] = timings.get("dispatch_s", 0.0) + t1 - t0
+        Two spans: ``Mode B device`` (copy to the device, the two kernels
+        and the copy back, which waits for them) and ``Mode B
+        marginalize`` (the f64 seed marginalization whose reduction order
+        is part of the parity contract, DESIGN.md §2)."""
+        with span("Mode B device"):
+            if "A_tab" in prep:
+                cols_fn = mode_b_cols_plain
+                A = torch.from_numpy(prep["A_tab"]).to(self.device)
+            else:
+                cols_fn = mode_b_cols
+                A = self.artifact_tables(prep)
+            args = [A if k == "A_tab"
+                    else torch.from_numpy(prep[k]).to(self.device)
+                    for k in ROW_KEYS]
+            cols = cols_fn(*args, n_d=prep["n_d"])
+            cols = cols.cpu().numpy().astype(np.float64)
 
-        alns, seeds, segs = prep["alns"], prep["seeds"], prep["segs"]
-        configs, sides, elem = prep["configs"], prep["sides"], prep["elem"]
-        lprob = prep["lprob"]
-        out = np.empty((prep["P"], prep["K"]))
-        for p, aln in enumerate(alns):
-            seq = aln.sequence
-            _, blw, blc, _quals = segs[p]
-            s = seeds[p]
-            for k, config in enumerate(configs):
-                fw_seqs = sides[k][2]
-                out[p, k] = self.compute_aln_logprob(
-                    len(seq), s, seq[s], blw[s], blc[s],
-                    cols[elem[(p, k, 0)]], lprob[p, 0],
-                    cols[elem[(p, k, 1)]], lprob[p, 1], fw_seqs)
-        if timings is not None:
-            timings["marginalize_s"] = (timings.get("marginalize_s", 0.0)
-                                        + time.time() - t1)
+        with span("Mode B marginalize"):
+            alns, seeds, segs = prep["alns"], prep["seeds"], prep["segs"]
+            configs, sides, elem = prep["configs"], prep["sides"], prep["elem"]
+            lprob = prep["lprob"]
+            out = np.empty((prep["P"], prep["K"]))
+            for p, aln in enumerate(alns):
+                seq = aln.sequence
+                _, blw, blc, _quals = segs[p]
+                s = seeds[p]
+                for k, config in enumerate(configs):
+                    fw_seqs = sides[k][2]
+                    out[p, k] = self.compute_aln_logprob(
+                        len(seq), s, seq[s], blw[s], blc[s],
+                        cols[elem[(p, k, 0)]], lprob[p, 0],
+                        cols[elem[(p, k, 1)]], lprob[p, 1], fw_seqs)
         return out
 
     def artifact_tables(self, prep):

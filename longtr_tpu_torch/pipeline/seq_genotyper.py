@@ -39,6 +39,7 @@ from longtr_tpu_torch.haplotype.blocks import Haplotype
 from longtr_tpu_torch.haplotype.generator import HaplotypeGenerator, REF_FLANK_LEN
 from longtr_tpu_torch.ops import pairhmm
 from longtr_tpu_torch.ops.posterior import genotype_log_priors
+from longtr_tpu_torch.utils.timers import span
 
 
 class ReadPooler:
@@ -256,13 +257,19 @@ class ScoreHandle:
     pipeline/processor.py).
     """
 
-    __slots__ = ("_pending", "_out", "n_dispatches", "n_bytes")
+    __slots__ = ("_pending", "_out", "n_dispatches", "n_bytes",
+                 "n_cells_launched", "n_cells_real")
 
-    def __init__(self, pending, out, n_bytes=0):
+    def __init__(self, pending, out, n_bytes=0, n_cells_launched=0,
+                 n_cells_real=0):
         self._pending = pending
         self._out = out
         self.n_dispatches = len(pending)
         self.n_bytes = n_bytes
+        # DP cells: of the padded batches (Bpad * n_max * m_max summed)
+        # and of the pairs themselves (len(hap) * len(read) summed)
+        self.n_cells_launched = n_cells_launched
+        self.n_cells_real = n_cells_real
 
     def result(self) -> np.ndarray:
         """Materialize all chunk scores (the only host sync; one copy per
@@ -294,17 +301,19 @@ def score_pairs_async(pairs, params=None, scorer=None) -> ScoreHandle:
     scorer = scorer or pairhmm.pairhmm_batch_auto
     B = len(pairs)
     out = np.empty(B, dtype=np.float64)
-    # Group pairs into geometric length classes so one long-TR locus in the
-    # fused window doesn't pad every short pair to its DP size (a 3kb VNTR
-    # mixed into a window of 20bp STRs is a ~1000x cell blowup otherwise).
-    classes = {}
-    for idx, (h, r, _fl) in enumerate(pairs):
-        key = max(64, 1 << (max(len(h), len(r), 1) - 1).bit_length())
-        classes.setdefault(key, []).append(idx)
+    with span("Pair packing"):
+        # Group pairs into geometric length classes so one long-TR locus in
+        # the fused window doesn't pad every short pair to its DP size (a
+        # 3kb VNTR mixed into a window of 20bp STRs is a ~1000x cell blowup
+        # otherwise).
+        classes = {}
+        for idx, (h, r, _fl) in enumerate(pairs):
+            key = max(64, 1 << (max(len(h), len(r), 1) - 1).bit_length())
+            classes.setdefault(key, []).append(idx)
     # dispatch every chunk before materializing any result so the device
     # queue pipelines across chunks (one host sync at the end, not per chunk)
     pending = []
-    n_bytes = 0
+    n_bytes = cells_launched = cells_real = 0
     for key in sorted(classes):
         idxs = classes[key]
         n_max = _bucket(max(max(len(pairs[i][0]) for i in idxs), 1))
@@ -313,25 +322,29 @@ def score_pairs_async(pairs, params=None, scorer=None) -> ScoreHandle:
         for take, Bpad in _plan_chunks(len(idxs)):
             sel = idxs[lo: lo + take]
             lo += take
-            hap_codes = np.zeros((Bpad, n_max), dtype=np.uint8)
-            read_codes = np.zeros((Bpad, m_max), dtype=np.uint8)
-            hap_lens = np.ones(Bpad, dtype=np.int32)
-            read_lens = np.ones(Bpad, dtype=np.int32)
-            full_lens = np.ones(Bpad, dtype=np.int32)
-            for i, k in enumerate(sel):
-                h, r, fl = pairs[k]
-                hap_codes[i, : len(h)] = np.frombuffer(h.encode(),
-                                                       dtype=np.uint8)
-                read_codes[i, : len(r)] = np.frombuffer(r.encode(),
-                                                        dtype=np.uint8)
-                hap_lens[i] = len(h)
-                read_lens[i] = len(r)
-                full_lens[i] = fl
-            n_bytes += hap_codes.nbytes + read_codes.nbytes + 12 * Bpad
+            with span("Pair packing"):
+                hap_codes = np.zeros((Bpad, n_max), dtype=np.uint8)
+                read_codes = np.zeros((Bpad, m_max), dtype=np.uint8)
+                hap_lens = np.ones(Bpad, dtype=np.int32)
+                read_lens = np.ones(Bpad, dtype=np.int32)
+                full_lens = np.ones(Bpad, dtype=np.int32)
+                for i, k in enumerate(sel):
+                    h, r, fl = pairs[k]
+                    hap_codes[i, : len(h)] = np.frombuffer(h.encode(),
+                                                           dtype=np.uint8)
+                    read_codes[i, : len(r)] = np.frombuffer(r.encode(),
+                                                            dtype=np.uint8)
+                    hap_lens[i] = len(h)
+                    read_lens[i] = len(r)
+                    full_lens[i] = fl
+                n_bytes += hap_codes.nbytes + read_codes.nbytes + 12 * Bpad
+                cells_launched += Bpad * n_max * m_max
+                cells_real += int(np.dot(hap_lens[:take].astype(np.int64),
+                                         read_lens[:take]))
             scores = scorer(hap_codes, hap_lens, read_codes, read_lens,
                             full_lens, params)
             pending.append((sel, scores))
-    return ScoreHandle(pending, out, n_bytes)
+    return ScoreHandle(pending, out, n_bytes, cells_launched, cells_real)
 
 
 def score_pairs(pairs, params=None, scorer=None):
