@@ -79,86 +79,66 @@ class BamRecord:
         self.end_pos = self.pos + cigar_ref_len(self.cigar)
 
     def __getattr__(self, attr):
-        # Lazy CIGAR: window-cache records carry columnar (ops, lens) views
-        # of the decode batch and only materialize the tuple list when a
-        # consumer actually iterates it (the native left-align path never
-        # does).
-        if attr == "cigar":
-            cols = self.__dict__.get("_cig_cols")
-            if cols is not None:
-                c = list(zip(cols[0].tobytes().decode(), cols[1].tolist()))
-                self.cigar = c
-                return c
+        # Lazy fields: a record of a decoded BAM window (``_src`` = its
+        # decode batch and row, native.DecodedBatch) builds its CIGAR
+        # list, sequence and qualities from the batch's columns only when
+        # a consumer reads them; the read filter's gates and the native
+        # trim read the columns instead.
+        if attr in ("cigar", "seq", "qual"):
+            src = self.__dict__.get("_src")
+            if src is not None:
+                value = getattr(src[0], attr)(src[1])
+                self.__dict__[attr] = value
+                return value
         raise AttributeError(attr)
 
     @property
     def n_cigar(self) -> int:
         """CIGAR op count without materializing the tuple list."""
         if "cigar" not in self.__dict__:
-            cols = self.__dict__.get("_cig_cols")
-            if cols is not None:
-                return len(cols[1])
+            src = self.__dict__.get("_src")
+            if src is not None:
+                return int(src[0].offsets[src[1], 3])
         return len(self.cigar)
 
     def _edge_op(self, last: bool) -> str:
-        if "cigar" not in self.__dict__:
-            cols = self.__dict__.get("_cig_cols")
-            if cols is not None:
-                ops = cols[0]
-                if not len(ops):
-                    return ""
-                return chr(ops[-1] if last else ops[0])
         c = self.cigar
         if not c:
             return ""
         return c[-1][0] if last else c[0][0]
 
     @classmethod
-    def raw(cls, name, flag, ref_id, pos, mapq, cigar, mate_ref_id, mate_pos,
-            tlen, seq, qual, tags, filename, ref_name, mate_ref_name,
-            end_pos):
-        """Fast constructor with a precomputed end_pos (no CIGAR walk).
-
-        ``cigar=None`` defers to a columnar ``_cig_cols = (ops, lens)``
-        attribute the caller must set (see ``__getattr__``)."""
+    def from_batch(cls, batch, i, fields, filename, header):
+        """The record of row ``i`` of a decode batch, whose
+        ``record_fields(i)`` are ``fields``: name, tags and the fixed
+        fields now, the CIGAR, sequence and qualities when read
+        (``__getattr__``)."""
+        ref_id, pos, mapq, flag, mref, mpos, tlen, _l_seq = fields
         rec = object.__new__(cls)
-        rec.name = name
-        rec.flag = flag
-        rec.ref_id = ref_id
-        rec.pos = pos
-        rec.mapq = mapq
-        if cigar is not None:
-            rec.cigar = cigar
-        rec.mate_ref_id = mate_ref_id
-        rec.mate_pos = mate_pos
-        rec.tlen = tlen
-        rec.seq = seq
-        rec.qual = qual
-        rec.tags = tags
-        rec.filename = filename
-        rec.ref_name = ref_name
-        rec.mate_ref_name = mate_ref_name
-        rec.deleted = False
-        rec.end_pos = end_pos
+        rec.__dict__.update(
+            name=batch.name(i), flag=flag, ref_id=ref_id, pos=pos,
+            mapq=mapq, mate_ref_id=mref, mate_pos=mpos, tlen=tlen,
+            tags=_decode_tags(batch.tag_blob(i), 0), filename=filename,
+            ref_name=header.ref_name(ref_id),
+            mate_ref_name=header.ref_name(mref), deleted=False,
+            end_pos=pos + int(batch.ref_lens[i]), _src=(batch, i))
         return rec
 
     def clone(self):
         """Fresh copy safe to hand downstream (trims mutate in place).
 
-        The CIGAR list is shallow-copied: trim_alignment deep-copies it
-        before any element mutation.  An unmaterialized columnar CIGAR is
-        shared (the decode-batch views are never mutated).
+        Every attribute is copied, ``deleted`` reset; the tags dict and a
+        materialized CIGAR list are copied one level deep (trim_alignment
+        deep-copies the CIGAR before any element mutation).  A decode
+        batch's ``_src`` is shared: the batch's columns are never mutated.
         """
-        lazy = "cigar" not in self.__dict__ and \
-            self.__dict__.get("_cig_cols") is not None
-        rec = BamRecord.raw(
-            self.name, self.flag, self.ref_id, self.pos, self.mapq,
-            None if lazy else list(self.cigar), self.mate_ref_id,
-            self.mate_pos, self.tlen,
-            self.seq, self.qual, dict(self.tags), self.filename,
-            self.ref_name, self.mate_ref_name, self.end_pos)
-        if lazy:
-            rec._cig_cols = self._cig_cols
+        rec = object.__new__(BamRecord)
+        d = rec.__dict__
+        d.update(self.__dict__)
+        d["tags"] = dict(self.tags)
+        d["deleted"] = False
+        if "cigar" in d:
+            d["cigar"] = list(d["cigar"])
         return rec
 
     # -- flag helpers (bam_io.h) -------------------------------------------
@@ -192,6 +172,10 @@ class BamRecord:
 
     @property
     def length(self):
+        if "seq" not in self.__dict__:
+            src = self.__dict__.get("_src")
+            if src is not None:
+                return int(src[0].fixed[src[1], 7])
         return len(self.seq)
 
     def has_tag(self, tag):
@@ -299,6 +283,8 @@ class BamRecord:
         self.pos = start_pos
         self.end_pos = end_pos
         self.cigar = [tuple(c) for c in cigar]
+        # the record no longer mirrors its decode batch's row
+        self.__dict__.pop("_src", None)
 
 
 @dataclass
@@ -725,23 +711,14 @@ class BamReader:
             for i in range(i0, run[1]):
                 tmpl = templates.get(i)
                 if tmpl is None:
-                    ref_id, pos, mapq, flag, mref, mpos, tlen, l_seq = \
-                        batch.record_fields(i)
+                    fields = batch.record_fields(i)
+                    ref_id, pos = fields[0], fields[1]
                     if ref_id != rid or pos >= end:
                         break
-                    ref_len = int(batch.ref_lens[i])
-                    if pos + ref_len <= start:
+                    if pos + int(batch.ref_lens[i]) <= start:
                         continue
-                    tmpl = BamRecord.raw(
-                        batch.name(i), flag, ref_id, pos, mapq,
-                        None, mref, mpos, tlen, batch.seq(i),
-                        batch.qual(i), _decode_tags(batch.tag_blob(i), 0),
-                        self.path, self.header.ref_name(ref_id),
-                        self.header.ref_name(mref), pos + ref_len)
-                    co = batch.offsets[i, 2]
-                    cn = batch.offsets[i, 3]
-                    tmpl._cig_cols = (batch.cigar_ops[co: co + cn],
-                                      batch.cigar_lens[co: co + cn])
+                    tmpl = BamRecord.from_batch(batch, i, fields, self.path,
+                                                self.header)
                     templates[i] = tmpl
                 elif tmpl.ref_id != rid or tmpl.pos >= end:
                     break

@@ -115,22 +115,33 @@ def get_lib():
                                       ctypes.c_long, ctypes.c_char_p,
                                       ctypes.c_long]
     lib.ltr_bam_decode.restype = ctypes.c_int64
+    U8P = ctypes.POINTER(ctypes.c_uint8)
+    I32P = ctypes.POINTER(ctypes.c_int32)
+    I64P = ctypes.POINTER(ctypes.c_int64)
+    lib.ltr_bam_decode.argtypes = [
+        U8P, ctypes.c_int64, ctypes.c_int64,            # buffer, records
+        I32P, I64P,                                     # fixed, offsets
+        U8P, ctypes.c_int64,                            # names
+        U8P, I32P, ctypes.c_int64,                      # cigars
+        U8P, U8P, ctypes.c_int64,                       # seqs, quals
+        U8P, ctypes.c_int64,                            # tags
+        I32P, I64P, U8P]                                # ref_lens, columns
     if hasattr(lib, "ltr_trim_expand_batch"):
-        I64P = ctypes.POINTER(ctypes.c_int64)
-        lib.ltr_trim_expand_batch.restype = ctypes.c_int64
+        # Buffers go as plain addresses (``arr.ctypes.data``): data_as()
+        # costs microseconds a buffer, and this runs once a locus.
+        VP = ctypes.c_void_p
+        I64 = ctypes.c_int64
+        lib.ltr_trim_expand_batch.restype = I64
         lib.ltr_trim_expand_batch.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,    # chrom window
-            ctypes.c_char_p, I64P,                              # seqs
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int32), I64P,               # cigars
-            I64P, I64P, ctypes.c_int64,                         # pos/end/R
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,     # trim bounds
-            ctypes.c_int64, ctypes.c_int64,                     # region
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,     # out cigar
-            ctypes.c_char_p, ctypes.c_int64,                    # out aln
-            I64P, I64P,                                         # out offsets
-            I64P]                                               # meta
+            ctypes.c_char_p, I64, I64,                  # chrom window
+            VP, I64,                                    # read rows
+            I64, I64, I64,                              # trim bounds
+            I64, I64,                                   # region
+            VP, VP, I64,                                # out cigar
+            VP, I64,                                    # out aln
+            VP, VP, I64,                                # out seq/qual
+            VP, VP, VP,                                 # out offsets
+            VP]                                         # meta
     _lib = lib
     return _lib
 
@@ -282,13 +293,21 @@ def bgzf_inflate_all(data: bytes) -> bytes | None:
 
 
 class DecodedBatch:
-    """Columnar decode of a BAM record region."""
+    """Columnar decode of a BAM record region.
+
+    Beside the records' fields and pools, the decode leaves what the read
+    filter asks of every record at each locus it overlaps: ``qual_sums``
+    (each record's summed phred+33 quality bytes) and ``facts`` ((n, 3)
+    uint8: has an 'N', first and last CIGAR op character, 0 without a
+    CIGAR).  A record built from row i carries ``(batch, i)`` as its
+    ``_src`` (io/bam.py), and is read through it at every locus."""
 
     __slots__ = ("n", "fixed", "offsets", "names", "cigar_ops", "cigar_lens",
-                 "seqs", "quals", "tags", "ref_lens")
+                 "seqs", "quals", "tags", "ref_lens", "qual_sums", "facts",
+                 "_gates", "_trim_rows")
 
     def __init__(self, n, fixed, offsets, names, cigar_ops, cigar_lens,
-                 seqs, quals, tags, ref_lens=None):
+                 seqs, quals, tags, ref_lens, qual_sums, facts):
         self.n = n
         self.fixed = fixed
         self.offsets = offsets
@@ -299,6 +318,47 @@ class DecodedBatch:
         self.quals = quals
         self.tags = tags
         self.ref_lens = ref_lens
+        self.qual_sums = qual_sums
+        self.facts = facts
+        self._gates = None
+        self._trim_rows = None
+
+    def read_gates(self):
+        """Per record, ``(has an 'N', mean base quality, hard-clipped at
+        an edge)``: ``"N" in rec.seq``, ``filters.mean_phred(rec.qual)``
+        and ``rec.starts_with_hard_clip() or rec.ends_with_hard_clip()``
+        of the record built from that row.  Built once a batch."""
+        if self._gates is None:
+            n = self.n
+            l_seq = self.fixed[:n, 7].astype(np.int64)
+            facts = self.facts[:n]
+            # Sums and lengths below 2**53 are exact as float64, so the
+            # quotient is mean_phred's int / int bit for bit (0.0 empty).
+            mean = (self.qual_sums[:n] - 33 * l_seq) / np.maximum(l_seq, 1)
+            hard = (facts[:, 1] == ord("H")) | (facts[:, 2] == ord("H"))
+            self._gates = list(zip(facts[:, 0].astype(bool).tolist(),
+                                   mean.tolist(), hard.tolist()))
+        return self._gates
+
+    def trim_rows(self):
+        """Per record, its row of :func:`trim_expand_batch`'s read table:
+        the addresses of its sequence, qualities, CIGAR ops and CIGAR
+        lengths in this batch's columns, its length, CIGAR count, pos and
+        end.  Built once a batch."""
+        if self._trim_rows is None:
+            n = self.n
+            o = self.offsets[:n]
+            rows = np.empty((n, 8), np.int64)
+            rows[:, 0] = self.seqs.ctypes.data + o[:, 4]
+            rows[:, 1] = self.quals.ctypes.data + o[:, 5]
+            rows[:, 2] = self.fixed[:n, 7]
+            rows[:, 3] = self.cigar_ops.ctypes.data + o[:, 2]
+            rows[:, 4] = self.cigar_lens.ctypes.data + 4 * o[:, 2]
+            rows[:, 5] = o[:, 3]
+            rows[:, 6] = self.fixed[:n, 1]
+            rows[:, 7] = rows[:, 6] + self.ref_lens[:n]
+            self._trim_rows = rows.tolist()
+        return self._trim_rows
 
     def record_fields(self, i):
         """(ref_id, pos, mapq, flag, mate_ref, mate_pos, tlen, l_seq)."""
@@ -342,7 +402,8 @@ def bam_decode(buf: bytes, max_records: int | None = None):
         return DecodedBatch(0, np.zeros((0, 8), np.int32),
                             np.zeros((0, 8), np.int64),
                             z8, z8, np.zeros(0, np.int32), z8, z8, z8,
-                            np.zeros(0, np.int32))
+                            np.zeros(0, np.int32), np.zeros(0, np.int64),
+                            np.zeros((0, 3), np.uint8))
     fixed = np.zeros((n_rec, 8), dtype=np.int32)
     offsets = np.zeros((n_rec, 8), dtype=np.int64)
     names = np.zeros(len(buf), dtype=np.uint8)
@@ -352,6 +413,8 @@ def bam_decode(buf: bytes, max_records: int | None = None):
     quals = np.zeros(2 * len(buf) + 16, dtype=np.uint8)
     tags = np.zeros(len(buf), dtype=np.uint8)
     ref_lens = np.zeros(n_rec, dtype=np.int32)
+    qual_sums = np.zeros(n_rec, dtype=np.int64)
+    facts = np.zeros((n_rec, 3), dtype=np.uint8)
 
     def P(a):
         return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
@@ -365,11 +428,41 @@ def bam_decode(buf: bytes, max_records: int | None = None):
         ctypes.c_int64(len(cigar_ops)),
         P(seqs), P(quals), ctypes.c_int64(len(seqs)),
         P(tags), ctypes.c_int64(len(tags)),
-        ref_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        ref_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        qual_sums.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), P(facts))
     if got < 0:
         return None
     return DecodedBatch(int(got), fixed, offsets, names, cigar_ops,
-                        cigar_lens, seqs, quals, tags, ref_lens)
+                        cigar_lens, seqs, quals, tags, ref_lens, qual_sums,
+                        facts)
+
+
+def _copied_rows(recs):
+    """Read-table rows (see :meth:`DecodedBatch.trim_rows`) of records
+    that carry no decode batch, over buffers made from their sequence,
+    qualities and CIGAR, or None where a record's qualities are not as
+    long as its sequence.  Returns (rows, buffers to keep alive)."""
+    seqs = [rec.seq.encode() for rec in recs]
+    quals = [rec.qual.encode() for rec in recs]
+    if any(len(s) != len(q) for s, q in zip(seqs, quals)):
+        return None
+    cigars = [rec.cigar for rec in recs]
+    ops = np.frombuffer(
+        "".join(op for cig in cigars for op, _ in cig).encode(), np.uint8)
+    lens = np.fromiter((n for cig in cigars for _, n in cig), np.int32,
+                       len(ops))
+    sbuf = np.frombuffer(b"".join(seqs), np.uint8)
+    qbuf = np.frombuffer(b"".join(quals), np.uint8)
+    rows = []
+    s_off = c_off = 0
+    for rec, s, cig in zip(recs, seqs, cigars):
+        rows.append([sbuf.ctypes.data + s_off, qbuf.ctypes.data + s_off,
+                     len(s), ops.ctypes.data + c_off,
+                     lens.ctypes.data + 4 * c_off, len(cig), rec.pos,
+                     rec.end_pos])
+        s_off += len(s)
+        c_off += len(cig)
+    return rows, (sbuf, qbuf, ops, lens)
 
 
 def trim_expand_batch(chrom_window: bytes, chrom_off: int, recs,
@@ -377,77 +470,70 @@ def trim_expand_batch(chrom_window: bytes, chrom_off: int, recs,
                       flank_size: int, region_start: int, region_stop: int):
     """Batched trim + CIGAR expansion for one locus's reads (native).
 
-    Returns (meta, out_ops, out_lens, cig_offs, aln_bytes, aln_offs) or
-    None if the library is unavailable (caller falls back to the Python
-    trim_alignment + expand_cigar_vs_ref pair, which this transcribes).
-    meta is (R, 8) int64: [status, new_pos, new_end, ltrim, rtrim,
-    n_cigar, aln_len, deleted]; status 0=keep 1=overlap_fail
-    2=softclip_fail 3=del_alignment 4=bad_cigar.
+    A read from a decoded BAM window (one whose ``_src`` names its batch
+    and row) is handed over as the addresses of its row in the batch's
+    columns; the others' sequences, qualities and CIGARs are copied into
+    buffers for the call.  Returns (meta, ops, lens, cig_offs, aln,
+    aln_offs, seq, qual, seq_offs) or None if the library is unavailable
+    (caller falls back to the Python trim_alignment + expand_cigar_vs_ref
+    pair, which this transcribes).  meta holds one list a read: [status,
+    new_pos, new_end, ltrim, rtrim, n_cigar, aln_len, deleted]; status
+    0=keep 1=overlap_fail 2=softclip_fail 3=del_alignment 4=bad_cigar.
+    A kept read k's expanded CIGAR is ``zip(ops, lens)[cig_offs[k]:
+    cig_offs[k + 1]]``, its alignment string, trimmed upper-cased
+    sequence and trimmed qualities the same slices of ``aln``, ``seq``
+    and ``qual`` by ``aln_offs`` and ``seq_offs``.
     """
     lib = get_lib()
     if lib is None or not hasattr(lib, "ltr_trim_expand_batch"):
         return None
     R = len(recs)
-    seq_off = np.zeros(R + 1, np.int64)
-    cig_off = np.zeros(R + 1, np.int64)
-    pos = np.zeros(R, np.int64)
-    endp = np.zeros(R, np.int64)
-    seq_parts = []
-    ops_parts = []
-    lens_parts = []
-    tot_s = tot_c = 0
-    for i, rec in enumerate(recs):
-        b = rec.seq.encode()
-        seq_parts.append(b)
-        tot_s += len(b)
-        seq_off[i + 1] = tot_s
-        cols = None
-        if "cigar" not in rec.__dict__:
-            cols = rec.__dict__.get("_cig_cols")
-        if cols is not None:            # columnar fast path (no tuple list)
-            ops_parts.append(cols[0].tobytes())
-            lens_parts.append(cols[1])
-            tot_c += len(cols[1])
+    rows = []
+    copied = []
+    for k, rec in enumerate(recs):
+        src = rec.__dict__.get("_src")
+        if src is not None:
+            rows.append(src[0].trim_rows()[src[1]])
         else:
-            cig = rec.cigar
-            ops_parts.append("".join(op for op, _ in cig).encode())
-            lens_parts.append(np.fromiter((n for _, n in cig),
-                                          np.int32, len(cig)))
-            tot_c += len(cig)
-        cig_off[i + 1] = tot_c
-        pos[i] = rec.pos
-        endp[i] = rec.end_pos
-    seqs = b"".join(seq_parts)
-    ops_arr = np.frombuffer(b"".join(ops_parts), np.uint8).copy()
-    lens_arr = (np.concatenate(lens_parts) if lens_parts
-                else np.zeros(0, np.int32))
-    if ops_arr.size == 0:
-        ops_arr = np.zeros(1, np.uint8)
-        lens_arr = np.zeros(1, np.int32)
+            rows.append(None)
+            copied.append(k)
+    buffers = None
+    if copied:
+        got = _copied_rows([recs[k] for k in copied])
+        if got is None:
+            return None
+        rows_copied, buffers = got
+        for k, row in zip(copied, rows_copied):
+            rows[k] = row
+    table = np.array(rows, np.int64).reshape(R, 8)
+    tot_s = int(table[:, 2].sum())
+    tot_c = int(table[:, 5].sum())
     cig_cap = tot_c + tot_s + 16
     aln_cap = tot_s + R * max(max_read_stop - min_read_start + 2, 2) + 16
+    seq_cap = tot_s + 16
     out_ops = np.empty(cig_cap, np.uint8)
     out_lens = np.empty(cig_cap, np.int32)
     out_aln = np.empty(aln_cap, np.uint8)
+    out_seq = np.empty(seq_cap, np.uint8)
+    out_qual = np.empty(seq_cap, np.uint8)
     cig_offs = np.zeros(R + 1, np.int64)
     aln_offs = np.zeros(R + 1, np.int64)
+    seq_offs = np.zeros(R + 1, np.int64)
     meta = np.zeros(R * 8, np.int64)
-    I64P = ctypes.POINTER(ctypes.c_int64)
     rc = lib.ltr_trim_expand_batch(
-        chrom_window, chrom_off, len(chrom_window),
-        seqs, seq_off.ctypes.data_as(I64P),
-        ops_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        lens_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        cig_off.ctypes.data_as(I64P),
-        pos.ctypes.data_as(I64P), endp.ctypes.data_as(I64P), R,
-        min_read_start, max_read_stop, flank_size,
-        region_start, region_stop,
-        out_ops.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        out_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cig_cap,
-        out_aln.ctypes.data_as(ctypes.c_char_p), aln_cap,
-        cig_offs.ctypes.data_as(I64P), aln_offs.ctypes.data_as(I64P),
-        meta.ctypes.data_as(I64P))
+        chrom_window, chrom_off, len(chrom_window), table.ctypes.data, R,
+        min_read_start, max_read_stop, flank_size, region_start, region_stop,
+        out_ops.ctypes.data, out_lens.ctypes.data, cig_cap,
+        out_aln.ctypes.data, aln_cap,
+        out_seq.ctypes.data, out_qual.ctypes.data, seq_cap,
+        cig_offs.ctypes.data, aln_offs.ctypes.data, seq_offs.ctypes.data,
+        meta.ctypes.data)
+    del buffers              # the copied rows' buffers: alive through the call
     if rc != 0:
         return None
-    return (meta.reshape(R, 8), out_ops, out_lens, cig_offs,
-            out_aln, aln_offs)
+    n_c, n_a, n_s = int(cig_offs[-1]), int(aln_offs[-1]), int(seq_offs[-1])
+    return (meta.reshape(R, 8).tolist(),
+            out_ops[:n_c].tobytes().decode(), out_lens[:n_c].tolist(),
+            cig_offs.tolist(), out_aln[:n_a].tobytes().decode(),
+            aln_offs.tolist(), out_seq[:n_s].tobytes().decode(),
+            out_qual[:n_s].tobytes().decode(), seq_offs.tolist())

@@ -239,6 +239,11 @@ int64_t ltr_bam_count_records(const uint8_t* buf, int64_t n) {
 //   names: concatenated NUL-free name bytes
 //   cigar_ops: uint8 op chars; cigar_lens: int32 lengths
 //   seqs: ASCII bases; quals: phred+33 bytes (same offsets as seqs)
+// Per-record facts the read filter asks of every record at every locus it
+// overlaps, computed here once:
+//   qual_sums: int64, the sum of the record's phred+33 quality bytes
+//   facts: (max_records, 3) uint8: 1 if the sequence holds an 'N', the
+//          first and the last CIGAR op character (0 without a CIGAR)
 // Returns number of records decoded, or -1 on error.
 int64_t ltr_bam_decode(const uint8_t* buf, int64_t n, int64_t max_records,
                        int32_t* fixed,          // (max_records, 8) int32
@@ -247,7 +252,8 @@ int64_t ltr_bam_decode(const uint8_t* buf, int64_t n, int64_t max_records,
                        uint8_t* cigar_ops, int32_t* cigar_lens, int64_t cigar_cap,
                        uint8_t* seqs, uint8_t* quals, int64_t seq_cap,
                        uint8_t* tags, int64_t tags_cap,
-                       int32_t* ref_lens) {
+                       int32_t* ref_lens,
+                       int64_t* qual_sums, uint8_t* facts) {
   int64_t off = 0, rec = 0;
   int64_t name_out = 0, cig_out = 0, seq_out = 0, tag_out = 0;
   while (off + 4 <= n && rec < max_records) {
@@ -313,17 +319,27 @@ int64_t ltr_bam_decode(const uint8_t* buf, int64_t n, int64_t max_records,
     // seq (4-bit packed) + qual
     if (seq_out + l_seq > seq_cap) return -2;
     o[4] = seq_out;
+    uint8_t has_n = 0;
     for (int k = 0; k < l_seq; ++k) {
       uint8_t b = p[k >> 1];
       uint8_t code = (k & 1) ? (b & 0xF) : (b >> 4);
       seqs[seq_out + k] = (uint8_t)SEQ_NT16[code];
+      has_n |= code == 15;  // 'N'
     }
     p += (l_seq + 1) / 2;
+    int64_t qsum = 0;
     for (int k = 0; k < l_seq; ++k) {
       int q = p[k] + 33;
-      quals[seq_out + k] = (uint8_t)(q > 126 ? 126 : q);
+      q = q > 126 ? 126 : q;
+      quals[seq_out + k] = (uint8_t)q;
+      qsum += q;
     }
     o[5] = seq_out;
+    qual_sums[rec] = qsum;
+    uint8_t* fa = facts + rec * 3;
+    fa[0] = has_n;
+    fa[1] = n_cigar ? cigar_ops[cig_out - n_cigar] : 0;
+    fa[2] = n_cigar ? cigar_ops[cig_out - 1] : 0;
     seq_out += l_seq;
     p += l_seq;
 
@@ -1730,51 +1746,73 @@ extern "C" void ltr_pairhmm_batch(
 // pipeline/alignment.py::expand_cigar_vs_ref run-for-run; the Python path
 // remains as the fallback and the identity test's reference.
 //
+// Each read is one row of 8 int64 in `reads`: the addresses of its
+// sequence and of its qualities (seq_len bytes each), seq_len, the
+// addresses of its CIGAR op characters (uint8) and lengths (int32),
+// n_cigar, pos and end_pos (exclusive).  A read from a decoded BAM
+// window points straight into its batch's columns; any other read into
+// buffers the caller built for the call.
+//
 // Per-read meta layout (8 int64 each):
 //   [0] status: 0=keep 1=overlap_fail 2=softclip_fail 3=del_alignment
 //               4=bad_cigar
 //   [1] new_pos  [2] new_end_pos(exclusive)  [3] ltrim  [4] rtrim
 //   [5] n_out_cigar  [6] aln_len  [7] deleted(0/1)
 //
+// A kept read's trimmed sequence (upper-cased) and qualities go to
+// out_seq/out_qual, its expanded CIGAR to out_ops/out_lens and its
+// alignment string to out_aln, each at the read's offsets (R+1 each).
 // Output capacity contract (caller allocates):
 //   out_ops/out_lens: total input cigar entries + total seq bytes
 //   out_aln: total seq bytes + R * (max_read_stop - min_read_start + 2)
+//   out_seq/out_qual: total seq bytes
 // Returns 0, or -1 if a capacity or bounds invariant is violated.
+
+// Python's str.upper() on ASCII, inline (toupper is a libc call a base).
+static inline char ascii_upper(char c) {
+  return (c >= 'a' && c <= 'z') ? (char)(c - 'a' + 'A') : c;
+}
+
 extern "C" int64_t ltr_trim_expand_batch(
     const char* chrom, int64_t chrom_off, int64_t chrom_len,  // window
-    const char* seqs, const int64_t* seq_off,                  // R+1
-    const uint8_t* ops, const int32_t* oplens, const int64_t* cig_off,  // R+1
-    const int64_t* pos, const int64_t* end_pos, int64_t R,
+    const int64_t* reads, int64_t R,                           // R x 8
     int64_t min_read_start, int64_t max_read_stop, int64_t flank_size,
     int64_t region_start, int64_t region_stop,
     uint8_t* out_ops, int32_t* out_lens, int64_t out_cig_cap,
     char* out_aln, int64_t out_aln_cap,
+    char* out_seq, char* out_qual, int64_t out_seq_cap,
     int64_t* out_cig_offs, int64_t* out_aln_offs,              // R+1 each
+    int64_t* out_seq_offs,                                     // R+1
     int64_t* meta) {
-  int64_t cig_w = 0, aln_w = 0;
+  int64_t cig_w = 0, aln_w = 0, seq_w = 0;
   std::vector<uint8_t> t_ops;
   std::vector<int64_t> t_lens;
   out_cig_offs[0] = 0;
   out_aln_offs[0] = 0;
+  out_seq_offs[0] = 0;
   for (int64_t r = 0; r < R; r++) {
     int64_t* m = meta + r * 8;
     for (int k = 0; k < 8; k++) m[k] = 0;
     out_cig_offs[r + 1] = cig_w;
     out_aln_offs[r + 1] = aln_w;
-    const int64_t slo = seq_off[r], shi = seq_off[r + 1];
-    const int64_t seq_len = shi - slo;
-    const char* seq = seqs + slo;
-    const int64_t clo = cig_off[r], chi = cig_off[r + 1];
+    out_seq_offs[r + 1] = seq_w;
+    const int64_t* row = reads + r * 8;
+    const char* seq = (const char*)(uintptr_t)row[0];
+    const char* qual = (const char*)(uintptr_t)row[1];
+    const int64_t seq_len = row[2];
+    const uint8_t* ops = (const uint8_t*)(uintptr_t)row[3];
+    const int32_t* oplens = (const int32_t*)(uintptr_t)row[4];
+    const int64_t nc = row[5];
+    const int64_t pos = row[6], end_pos = row[7];
     // overlap gate (genotyper_bam_processor.cpp:56-59)
-    if (pos[r] > region_start || end_pos[r] < region_stop) {
+    if (pos > region_start || end_pos < region_stop) {
       m[0] = 1;
       continue;
     }
     // ---- trim (io/bam.py trim_alignment; bam_io.cpp:267-372) ----
-    t_ops.assign(ops + clo, ops + chi);
-    t_lens.assign(oplens + clo, oplens + chi);
-    int64_t nc = chi - clo;
-    int64_t ltrim = 0, start_pos = pos[r];
+    t_ops.assign(ops, ops + nc);
+    t_lens.assign(oplens, oplens + nc);
+    int64_t ltrim = 0, start_pos = pos;
     int64_t ci = 0;
     bool bad = false;
     while (start_pos < min_read_start && ci < nc) {
@@ -1828,7 +1866,7 @@ extern "C" int64_t ltr_trim_expand_batch(
     }
     if (deletion_size >= repeat_end - repeat_start) m[7] = 1;
     // right trim
-    int64_t rtrim = 0, cur_end = end_pos[r];
+    int64_t rtrim = 0, cur_end = end_pos;
     int64_t ce = nc;  // trimmed cigar = [base, ce)
     while (cur_end > max_read_stop && ce > base) {
       uint8_t op = t_ops[ce - 1];
@@ -1872,7 +1910,6 @@ extern "C" int64_t ltr_trim_expand_batch(
       // source element and only coalesces =/X runs WITHIN one M/=/X
       // element (genotyper_bam_processor.cpp:80-130) — never across
       // source elements and never for S/I/D.
-      const int64_t elem_start = cig_w;
       if (op == 'H') continue;
       if (op == 'S') {
         if (cig_w >= out_cig_cap) return -1;
@@ -1886,7 +1923,7 @@ extern "C" int64_t ltr_trim_expand_batch(
         out_lens[cig_w++] = (int32_t)n;
         if (aln_w + n > out_aln_cap) return -1;
         for (int64_t t = 0; t < n; t++)
-          out_aln[aln_w++] = (char)toupper((unsigned char)seq[seq_index + t]);
+          out_aln[aln_w++] = ascii_upper(seq[seq_index + t]);
         seq_index += n;
       } else if (op == 'D') {
         if (cig_w >= out_cig_cap) return -1;
@@ -1897,21 +1934,33 @@ extern "C" int64_t ltr_trim_expand_batch(
         ref_index += n;
       } else if (op == 'M' || op == '=' || op == 'X') {
         if (aln_w + n > out_aln_cap) return -1;
+        // The open =/X run stays in registers and is written when it
+        // ends: runs coalesce within this element only.
+        uint8_t run_op = 0;
+        int32_t run_len = 0;
         for (int64_t t = 0; t < n; t++) {
-          char rb = (char)toupper((unsigned char)seq[seq_index + t]);
+          char rb = ascii_upper(seq[seq_index + t]);
           int64_t ref_pos = ref_index + t - chrom_off;
           char fb = (ref_pos >= 0 && ref_pos < chrom_len)
-                        ? (char)toupper((unsigned char)chrom[ref_pos]) : '\0';
+                        ? ascii_upper(chrom[ref_pos]) : '\0';
           uint8_t eq = rb == fb ? '=' : 'X';
-          out_aln[aln_w] = rb;
-          aln_w++;
-          if (cig_w > elem_start && out_ops[cig_w - 1] == eq)
-            out_lens[cig_w - 1]++;
-          else {
-            if (cig_w >= out_cig_cap) return -1;
-            out_ops[cig_w] = eq;
-            out_lens[cig_w++] = 1;
+          out_aln[aln_w++] = rb;
+          if (eq == run_op) {
+            run_len++;
+            continue;
           }
+          if (run_len) {
+            if (cig_w >= out_cig_cap) return -1;
+            out_ops[cig_w] = run_op;
+            out_lens[cig_w++] = run_len;
+          }
+          run_op = eq;
+          run_len = 1;
+        }
+        if (run_len) {
+          if (cig_w >= out_cig_cap) return -1;
+          out_ops[cig_w] = run_op;
+          out_lens[cig_w++] = run_len;
         }
         seq_index += n;
         ref_index += n;
@@ -1921,16 +1970,25 @@ extern "C" int64_t ltr_trim_expand_batch(
     }
     if (bad) { m[0] = 4; cig_w = cig_start; aln_w = aln_start; continue; }
     if (soft) { m[0] = 2; cig_w = cig_start; aln_w = aln_start; continue; }
+    const int64_t kept = seq_len - ltrim - rtrim;
+    if (seq_w + kept > out_seq_cap) return -1;
+    for (int64_t t = 0; t < kept; t++) {
+      out_seq[seq_w + t] = ascii_upper(seq[ltrim + t]);
+      out_qual[seq_w + t] = qual[ltrim + t];
+    }
+    seq_w += kept;
     m[0] = 0;
     m[5] = cig_w - cig_start;
     m[6] = aln_w - aln_start;
     out_cig_offs[r + 1] = cig_w;
     out_aln_offs[r + 1] = aln_w;
+    out_seq_offs[r + 1] = seq_w;
   }
   // final offsets for trailing skipped reads
   for (int64_t r = 0; r < R; r++) {
     if (out_cig_offs[r + 1] < out_cig_offs[r]) out_cig_offs[r + 1] = out_cig_offs[r];
     if (out_aln_offs[r + 1] < out_aln_offs[r]) out_aln_offs[r + 1] = out_aln_offs[r];
+    if (out_seq_offs[r + 1] < out_seq_offs[r]) out_seq_offs[r + 1] = out_seq_offs[r];
   }
   return 0;
 }

@@ -207,25 +207,25 @@ def _native_left_align(region_group, chrom_seq, samples_reads):
 def _assemble_native_left_align(region_group, samples_reads, log_p1, log_p2,
                                 native_res, haplotype_tag, logger):
     """Build the Alignment list from the native batch results, preserving
-    the Python path's per-sample ordering, counters and filters exactly."""
-    meta, out_ops, out_lens, cig_offs, out_aln, aln_offs = native_res
+    the Python path's per-sample ordering, counters and filters exactly.
+    Each kept read's trimmed sequence, qualities, CIGAR and alignment
+    string are slices of the call's outputs."""
+    (meta, ops, lens, cig_offs, aln_str, aln_offs, seqs, quals,
+     seq_offs) = native_res
     left_alns = []
     filt_p1, filt_p2 = [], []
     n_p1s, n_p2s = [], []
     fail_count = 0
     total = 0
     k = 0
-    aln_bytes = out_aln.tobytes()
-    ops_bytes = out_ops.tobytes()
     for i, reads in enumerate(samples_reads):
         filt_p1.append([])
         filt_p2.append([])
         n_p1 = n_p2 = 0
         for j, rec in enumerate(reads):
             total += 1
-            m = meta[k]
+            status, new_pos, new_end, _lt, _rt, _nc, _na, deleted = meta[k]
             k += 1
-            status = int(m[0])
             if status == 4:
                 raise ValueError(
                     "Invalid CIGAR op in trim/expand for " + rec.name)
@@ -240,25 +240,21 @@ def _assemble_native_left_align(region_group, samples_reads, log_p1, log_p2,
                 filt_p1[i].append(log_p1[i][j])
                 filt_p2[i].append(log_p2[i][j])
                 continue
-            ltrim, rtrim = int(m[3]), int(m[4])
-            seq = rec.seq[ltrim: len(rec.seq) - rtrim].upper()
-            qual = rec.qual[ltrim: len(rec.qual) - rtrim]
-            aln = Alignment(int(m[1]), int(m[2]) - 1, rec.is_reverse,
-                            bool(m[7]), rec.name, qual, seq)
-            clo = int(cig_offs[k - 1])
-            chi = int(cig_offs[k])
-            aln.cigar = list(zip(ops_bytes[clo:chi].decode(),
-                                 out_lens[clo:chi].tolist()))
-            alo, ahi = int(aln_offs[k - 1]), int(aln_offs[k])
-            aln.alignment = aln_bytes[alo:ahi].decode()
+            slo, shi = seq_offs[k - 1], seq_offs[k]
+            clo, chi = cig_offs[k - 1], cig_offs[k]
+            aln = Alignment(
+                new_pos, new_end - 1, rec.is_reverse, bool(deleted),
+                rec.name, quals[slo:shi], seqs[slo:shi],
+                aln_str[aln_offs[k - 1]:aln_offs[k]],
+                list(zip(ops[clo:chi], lens[clo:chi])),
+                list(getattr(rec, "pass_two", None)
+                     or [True] * region_group.num_regions))
             hp = rec.get_tag(haplotype_tag)
             if hp == 1:
                 n_p1 += 1
             elif hp == 2:
                 n_p2 += 1
             aln.check_cigar()
-            aln.use_for_haps = list(getattr(rec, "pass_two", None)
-                                    or [True] * region_group.num_regions)
             left_alns.append(aln)
             filt_p1[i].append(log_p1[i][j])
             filt_p2[i].append(log_p2[i][j])

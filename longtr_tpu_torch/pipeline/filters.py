@@ -11,7 +11,7 @@ reference (bam_processor.cpp:294-316) and omitted here.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from longtr_tpu_torch.io.bam import build_cigar_string
 
@@ -117,6 +117,12 @@ class FilterCounters:
     low_mapq: int = 0
     num_filt_unpaired: int = 0
     too_many_reads: bool = False
+    # Where the records' gates came from, not what the filter decided
+    # (left out of ==): records of a decoded BAM window read their decode
+    # batch's columns, the others (CRAM, an unindexed BAM, no native
+    # library) compute them.
+    reads_from_columns: int = field(default=0, compare=False)
+    reads_fallback: int = field(default=0, compare=False)
 
 
 def _write_pass(rec, writer):
@@ -145,24 +151,36 @@ def read_and_filter_reads(reader, region_group, rg_to_sample, config,
     """
     counters = FilterCounters()
     regions = region_group.regions
+    g_start = region_group.start
+    g_stop = region_group.stop
     paired, mates, unpaired = [], [], []
     potential_strs = {}
     potential_mates = {}
     prev_file = None
     file_index = 0
     file_label = "0_"
+    from_columns = fallback = 0
 
     while True:
         rec = reader.get_next_alignment()
         if rec is None:
             break
+        # A record of a decoded BAM window reads its gates (has an N, mean
+        # base quality, hard-clipped) from the batch's columns by index.
+        src = rec.__dict__.get("_src")
+        if src is None:
+            gates = None
+            fallback += 1
+        else:
+            gates = src[0].read_gates()[src[1]]
+            from_columns += 1
         # Overlap gate incl. mate rescue window (bam_processor.cpp:208-215)
-        if rec.pos > region_group.stop or rec.end_pos < region_group.start:
+        if rec.pos > g_stop or rec.end_pos < g_start:
             if not rec.is_paired or rec.mate_pos == rec.pos:
                 continue
-            if rec.mate_pos > region_group.stop:
+            if rec.mate_pos > g_stop:
                 continue
-            if rec.mate_pos + rec.length + 100 < region_group.start:
+            if rec.mate_pos + rec.length + 100 < g_start:
                 continue
         if len(paired) > config.max_total_reads:
             counters.too_many_reads = True
@@ -170,14 +188,14 @@ def read_and_filter_reads(reader, region_group, rg_to_sample, config,
         if not rec.is_mapped or rec.pos == 0 or rec.n_cigar == 0 or rec.length == 0:
             continue
 
+        overlaps = rec.pos < g_stop and rec.end_pos >= g_start
         # Hard-clipped reads overlapping the region are dropped outright:
         # BASE_QUAL_TRIM defaults to '5' so this branch is live upstream
         # (bam_processor.cpp:226-240; the quality trim itself is commented
         # out there, leaving only this check active).
-        if config.base_qual_trim > " " and \
-                rec.pos < region_group.stop and \
-                rec.end_pos >= region_group.start:
-            if rec.starts_with_hard_clip() or rec.ends_with_hard_clip():
+        if config.base_qual_trim > " " and overlaps:
+            if (gates[2] if gates is not None else
+                    rec.starts_with_hard_clip() or rec.ends_with_hard_clip()):
                 counters.read_count += 1
                 counters.hard_clip += 1
                 _write_filt(rec, "HARD_CLIPPED", filt_writer)
@@ -189,16 +207,16 @@ def read_and_filter_reads(reader, region_group, rg_to_sample, config,
             file_index += 1
             file_label = f"{file_index}_"
 
-        overlaps = rec.pos < region_group.stop and rec.end_pos >= region_group.start
         if overlaps:
             pass_one = False
             pass_two = ["0"] * len(regions)
             filt = ""
             counters.read_count += 1
-            if "N" in rec.seq:
+            if gates[0] if gates is not None else "N" in rec.seq:
                 counters.read_has_N += 1
                 filt = "HAS_N_BASES"
-            elif mean_phred(rec.qual) < config.min_sum_qual_log_prob:
+            elif (gates[1] if gates is not None else mean_phred(rec.qual)) \
+                    < config.min_sum_qual_log_prob:
                 counters.low_qual_score += 1
                 filt = "LOW_BASE_QUALS"
             elif rec.mapq < config.min_mapq:
@@ -273,6 +291,9 @@ def read_and_filter_reads(reader, region_group, rg_to_sample, config,
                     del potential_mates[aln_key]
                 else:
                     potential_mates.setdefault(aln_key, rec)
+
+    counters.reads_from_columns = from_columns
+    counters.reads_fallback = fallback
 
     # std::map iteration is KEY-SORTED (bam_processor.cpp:421): the
     # unpaired-read order — and through the reverse RG fan-out below, the

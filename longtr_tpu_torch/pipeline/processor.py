@@ -60,6 +60,10 @@ class RunStats:
     bytes_dispatched: int = 0    # encoded pair bytes shipped to the device
     cells_launched: int = 0      # DP cells of the padded pair batches
     cells_real: int = 0          # DP cells of the pairs themselves
+    # (record, locus) pairs of the read filter whose gates and trim read
+    # a decode batch's columns, and those that took the fallback path
+    reads_from_columns: int = 0
+    reads_fallback: int = 0
 
 
 class GenotyperPipeline:
@@ -201,6 +205,8 @@ class GenotyperPipeline:
                     reader, group, rg_to_sample, cfg, self.use_bam_rgs,
                     self.sel_log, pass_writer=self.pass_bam,
                     filt_writer=self.filt_bam)
+            self.stats.reads_from_columns += counters.reads_from_columns
+            self.stats.reads_fallback += counters.reads_fallback
 
             if cfg.sample_set:
                 keep = [i for i, n in enumerate(rg_names) if n in cfg.sample_set]
@@ -549,6 +555,8 @@ class GenotyperPipeline:
             "num_syncs": s.num_syncs,
             "cells_launched": s.cells_launched,
             "cells_real": s.cells_real,
+            "reads_from_columns": s.reads_from_columns,
+            "reads_fallback": s.reads_fallback,
             "stage_seconds": self.timer.snapshot(),
         }
 
