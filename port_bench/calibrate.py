@@ -1,13 +1,15 @@
 """Readings that the check's limits are set from, in one process.
 
     python3 port_bench/calibrate.py --workload <cell> --seeds 1,2,... \
-        --control-seeds 101,102,103 --seconds 5
+        --control-seeds 101,102,103 --seconds 5 [--control <name>]
 
 For each seed, a run of the program; for each control seed, a run with
-the reference in bfloat16 in the program's place (``pbench.control``).
-Prints one JSON line a run, then per number compared the lower reading
-(the largest of the program's) and the upper (the smallest of the
-control's).  The benchmark's own runs never run this.
+``pbench.control``'s ``<name>`` in the program's place (default
+``bf16_control``, the reference in bfloat16; a planted fault, such as
+``mode_b_forced``, gives the upper reading of a number that the control
+does not move).  Prints one JSON line a run, then per number compared the
+lower reading (the largest of the program's) and the upper (the smallest
+of the control's).  The benchmark's own runs never run this.
 """
 
 import argparse
@@ -27,6 +29,7 @@ def main() -> int:
     p.add_argument("--seeds", required=True)
     p.add_argument("--control-seeds", required=True)
     p.add_argument("--seconds", type=float, default=5.0)
+    p.add_argument("--control", default="bf16_control")
     args = p.parse_args()
     import torch
 
@@ -38,7 +41,7 @@ def main() -> int:
     cell = cells.find(ROOT, HARNESS, args.workload)
     readings = {}
     runs = ([("program", int(s), None) for s in args.seeds.split(",")]
-            + [("control", int(s), control.bf16_control)
+            + [("control", int(s), getattr(control, args.control))
                for s in args.control_seeds.split(",")])
     for kind, seed, hook in runs:
         t0 = time.perf_counter()

@@ -451,10 +451,12 @@ def sample_records(haps, sample, reads, rng, rid=0):
     from the configuration's distribution and starting anywhere it
     overlaps the chromosome (clipped at its ends, so that every position
     gets the same depth), trimmed to the bases the reference aligns at
-    either end; HP-tagged with their haplotype."""
+    either end; HP-tagged with their haplotype unless the configuration's
+    ``reads`` set ``haplotags`` false."""
     records = []
     mean, sd, lo = (reads["length_mean"], reads["length_sd"],
                     reads["length_min"])
+    tagged = reads.get("haplotags", True)
     for h, hap in enumerate(haps, start=1):
         H = len(hap.refpos)
         n = int(round(reads["coverage"] / 2 * (H + mean) / mean))
@@ -468,8 +470,10 @@ def sample_records(haps, sample, reads, rng, rid=0):
             if b - a < lo // 10:
                 continue
             seq, cigar, pos = hap.read(rng, a, b)
+            tags = {"RG": f"rg_{sample}", "HP": h} if tagged else \
+                {"RG": f"rg_{sample}"}
             records.append(Read(f"{sample}_h{h}_{i}", 16 * (i % 2), rid, pos,
-                                cigar, seq, {"RG": f"rg_{sample}", "HP": h}))
+                                cigar, seq, tags))
     records.sort(key=lambda r: (r.ref_id, r.pos, r.name))
     return records
 
@@ -523,7 +527,7 @@ def build(outdir: str, traffic: dict, reads: dict, seed: int) -> dict:
     """Write the catalog of ``traffic`` with the reads of a configuration's
     ``reads`` into ``outdir``.  Returns the paths, the sample names in the
     order of the BAMs, the loci, the true genotypes and each read's
-    (sample index, HP tag) by read name."""
+    (sample index, HP tag or -1 where it has none) by read name."""
     S = reads["samples"]
     genome, loci, alleles, (pad, content, order) = layout(traffic, S, seed)
     fasta = os.path.join(outdir, "g.fa")
@@ -543,6 +547,6 @@ def build(outdir: str, traffic: dict, reads: dict, seed: int) -> dict:
         build_bai(path)
         bams.append(path)
         truth[sample] = {l.name: a for l, a in zip(loci, alleles[s])}
-        of_read.update((r.name, (s, r.tags["HP"])) for r in records)
+        of_read.update((r.name, (s, r.tags.get("HP", -1))) for r in records)
     return dict(fasta=fasta, bed=bed, bams=bams, loci=loci, truth=truth,
                 samples=[f"S{s}" for s in range(S)], reads=of_read)

@@ -3,9 +3,10 @@
 ``BENCHMARK.json`` names each cell's configuration and traffic mix; the
 harness reads the configuration from the file the entry gives, the mix
 from ``traffic/<name>.json``, the check's sample sizes and limits from
-``checks/<cell>.json`` and each per-layer metric's reader from
-``metrics/<name>.py``, all beside ``run.py``.  A new cell, mix, metric or
-configuration is a new file and a new entry; no code changes.
+``checks/<cell>.json``, each per-layer metric's reader from
+``metrics/<name>.py`` and each reference scorer the checks name from
+``pbref/<module>.py``, all beside ``run.py``.  A new cell, mix, metric,
+scorer or configuration is a new file and a new entry; no code changes.
 """
 
 from __future__ import annotations
@@ -53,11 +54,22 @@ def find(root: str, harness: str, name: str) -> Cell:
                 [m for m in bench["per_layer"] if reported_in(m, name)])
 
 
-def reader(harness: str, metric: str):
-    """The ``read(window)`` function of ``metrics/<metric>.py``."""
-    path = os.path.join(harness, "metrics", metric + ".py")
+def _load(harness: str, folder: str, name: str):
+    path = os.path.join(harness, folder, name + ".py")
     spec = importlib.util.spec_from_file_location(
-        "port_bench_metric_" + metric.replace(".", "_"), path)
+        f"port_bench_{folder}_" + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(harness: str, metric: str):
+    """The ``read(window)`` function of ``metrics/<metric>.py``."""
+    return _load(harness, "metrics", metric).read
+
+
+def scorer(harness: str, module: str):
+    """The ``score(gt, seqs, device)`` function of ``pbref/<module>.py``:
+    a scoring route's (pools, candidate haplotypes) float64 reference
+    scores of one locus, or None where it cannot score it."""
+    return _load(harness, "pbref", module).score

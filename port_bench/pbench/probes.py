@@ -110,8 +110,14 @@ class Probes:
                       and gt.region_group.regions[0].name in self.chosen)
             ok, pairs = orig(gt, *args, **kw)
             if chosen:
+                # the route the program took (a locus that fails here is
+                # never written, which the check counts as unscored): a
+                # pair-HMM request, or mode B's scores made through
+                # gt._mode_b_finish
                 gt._pb_chosen = True
                 gt._pb_pairs = pairs
+                gt._pb_route = None if not ok else (
+                    "pair_hmm" if pairs is not None else "mode_b")
             return ok, pairs
         return genotype_prepare
 

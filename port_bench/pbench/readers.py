@@ -8,7 +8,7 @@ metric out of the result.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -18,6 +18,8 @@ class Window:
     launches: int                # the port's kernel launch counters
     bound_s: dict                # summed roofline bounds by kernel family
     trace: dict | None = None    # trace.summarize() of the traced window
+    # --metrics-out's integer counters, summed over the passes
+    counters: dict = field(default_factory=dict)
 
 
 def stage_ms(w: Window, stages):

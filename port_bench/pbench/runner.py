@@ -106,7 +106,8 @@ def _reset_launches() -> None:
 
 def _window(cli, probes, argv_of, vcfs, mets, seconds, device, log, what):
     """Whole passes back to back until ``seconds`` have gone by: the
-    window's loci, genotyped loci, summed stage seconds, wall and launches."""
+    window's loci, genotyped loci, summed stage seconds and counters, wall
+    and launches."""
     import torch
 
     _reset_launches()
@@ -126,18 +127,20 @@ def _window(cli, probes, argv_of, vcfs, mets, seconds, device, log, what):
     t_end = time.perf_counter()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    stage, loci, ok = {}, 0, 0
+    stage, counters = {}, {}
     for path in mets[first:]:
         m = cells.load_json(path)
-        loci += m["loci_processed"]
-        ok += m["num_genotype_success"]
         for k, v in m["stage_seconds"].items():
             stage[k] = stage.get(k, 0.0) + v
+        for k, v in m.items():
+            if isinstance(v, int) and not isinstance(v, bool):
+                counters[k] = counters.get(k, 0) + v
+    loci, ok = counters["loci_processed"], counters["num_genotype_success"]
     log(f"[{what}] {len(pass_s)} passes, {loci} loci in "
         f"{t_end - t_start:.4f} s; passes "
         + " ".join(f"{t:.3f}" for t in pass_s))
-    return dict(loci=loci, ok=ok, stage=stage, t_start=t_start, t_end=t_end,
-                launches=_launches())
+    return dict(loci=loci, ok=ok, stage=stage, counters=counters,
+                t_start=t_start, t_end=t_end, launches=_launches())
 
 
 def run_cell(cell, harness, seed, seconds, trace, device, t0, log=print,
@@ -145,7 +148,9 @@ def run_cell(cell, harness, seed, seconds, trace, device, t0, log=print,
     """The result object of one run (None where the profiler lost the
     trace).  ``setup_hook(device)``, if given, runs before the probes are
     installed and returns a function that undoes it: the control and the
-    fault tests put their scorers in the program's place there.
+    fault tests put their scorers in the program's place there.  A
+    configuration whose flags the check has no reference for stops the run
+    before set-up (ValueError).
 
     Every run measures one untraced window: its wall gives ``loci_per_s``
     and its passes' stage seconds and launches the per-layer stage
@@ -155,6 +160,9 @@ def run_cell(cell, harness, seed, seconds, trace, device, t0, log=print,
 
     from longtr_tpu_torch import cli
 
+    sem = check.semantics(cell.config["flags"])
+    scorers = {route: cells.scorer(harness, module)
+               for route, module in cell.checks.get("scorers", {}).items()}
     cuda = device.type == "cuda"
     marks = [("imports", time.perf_counter())]
     if cuda:
@@ -226,7 +234,8 @@ def run_cell(cell, harness, seed, seconds, trace, device, t0, log=print,
         memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
         t_check = time.perf_counter()
-        values, notes = check.run(probes, vcfs, cat, sample, device, seed)
+        values, notes = check.run(probes, vcfs, cat, sample, sem, scorers,
+                                  device, seed)
         for n in notes:
             log(f"[check] {n}")
         log(f"[check] {time.perf_counter() - t_check:.2f} s")
@@ -253,7 +262,7 @@ def run_cell(cell, harness, seed, seconds, trace, device, t0, log=print,
         else:
             bounds = {"pairhmm": roofline.pairhmm_window(probes.pair_lengths)}
             w = Window(win["loci"], win["stage"], win["launches"], bounds,
-                       summary)
+                       summary, win["counters"])
             for m in cell.per_layer:
                 v = cells.reader(harness, m["name"])(w)
                 if v is not None:
@@ -268,7 +277,8 @@ def run_cell(cell, harness, seed, seconds, trace, device, t0, log=print,
             log(f"[roofline] bounds {bounds}; peaks 67 TFLOP/s f32, "
                 f"3.35 TB/s; card {power_limit()}")
             result["_summary"] = dict(
-                summary, stage_s=win["stage"], loci=win["loci"],
+                summary, stage_s=win["stage"], counters=win["counters"],
+                loci=win["loci"],
                 launches=win["launches"], bound_s=bounds,
                 traced_stage_s=twin["stage"], traced_loci=twin["loci"],
                 passes=len(vcfs))

@@ -29,9 +29,9 @@ DEFAULT_TRANSITIONS = np.array([-1.0, -0.458675, -1.0, -0.458675,
 def scan(hap, hap_len, read, read_len, full_hap_len, trans=None,
          dtype=torch.float32):
     """(B,) scores of a padded batch: hap (B, N) and read (B, M) uint8
-    codes, the three (B,) lengths, trans (7,)."""
-    if trans is None:
-        trans = torch.from_numpy(DEFAULT_TRANSITIONS)
+    codes, the three (B,) lengths, trans (7,) (default
+    ``DEFAULT_TRANSITIONS``)."""
+    trans = torch.as_tensor(DEFAULT_TRANSITIONS if trans is None else trans)
     B, Mdim = read.shape
     n_max = hap.shape[1]
     dev = read.device
@@ -127,9 +127,11 @@ def pack(pairs, width_step=64):
     return hap, hl, read, rl, fl
 
 
-def score_arrays(arrs, device, dtype=torch.float32, rows_per_batch=4096):
-    """float64 numpy scores of a packed batch, scored on ``device`` in
-    batches of ``rows_per_batch`` rows grouped by length."""
+def score_arrays(arrs, device, trans=None, dtype=torch.float32,
+                 rows_per_batch=4096):
+    """float64 numpy scores of a packed batch under the transitions
+    ``trans`` (7,), scored on ``device`` in batches of ``rows_per_batch``
+    rows grouped by length."""
     hap, hl, read, rl, fl = arrs
     out = np.empty(len(hl))
     order = np.argsort(np.maximum(hl, rl), kind="stable")
@@ -139,5 +141,5 @@ def score_arrays(arrs, device, dtype=torch.float32, rows_per_batch=4096):
         M = max(int(rl[sel].max()), 1)
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
              (hap[sel, :N], hl[sel], read[sel, :M], rl[sel], fl[sel])]
-        out[sel] = scan(*t, dtype=dtype).double().cpu().numpy()
+        out[sel] = scan(*t, trans=trans, dtype=dtype).double().cpu().numpy()
     return out

@@ -2,6 +2,8 @@
 what it draws."""
 
 import filecmp
+import gzip
+import hashlib
 import json
 import os
 
@@ -130,3 +132,46 @@ def test_every_seed_gets_the_same_loci_in_another_order(tmp_path):
         orders.append([x[2] for x in loci])
     assert content[0] == content[1]
     assert orders[0] != orders[1]
+
+
+# sha256 of the three BAMs' decompressed bytes, one after another, that
+# the generator wrote for _small("str_mix") at seed 2**31 + 77 before it
+# took ``haplotags``; the decompressed bytes, so that the zlib build does
+# not enter
+STR_MIX_BAMS = \
+    "c3ca1819adf8cb647fc753d011c9af5c5705fcd286757899b49b537a38e142b5"
+
+
+def _bam_digest(cat):
+    h = hashlib.sha256()
+    for path in cat["bams"]:
+        with gzip.open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def test_str_mix_reads_are_those_it_always_drew(tmp_path):
+    traffic, reads = _small("str_mix")
+    assert "haplotags" not in reads
+    cat = catalog.build(str(tmp_path), traffic, reads, 2 ** 31 + 77)
+    assert _bam_digest(cat) == STR_MIX_BAMS
+
+
+def test_untagged_reads_are_the_same_reads_without_hp(tmp_path):
+    from longtr_tpu_torch.io.bam import BamReader
+    traffic, reads = _small("str_mix")
+    cats = {}
+    for tagged, r in ((True, reads), (False, dict(reads, haplotags=False))):
+        d = tmp_path / str(tagged)
+        d.mkdir()
+        cats[tagged] = catalog.build(str(d), traffic, r, 2 ** 31 + 77)
+    assert cats[True]["reads"].keys() == cats[False]["reads"].keys()
+    for name, (s, hp) in cats[False]["reads"].items():
+        assert (s, -1) == (cats[True]["reads"][name][0], hp)
+    for a, b in zip(cats[True]["bams"], cats[False]["bams"]):
+        tagged = list(BamReader(a).fetch(catalog.CHROM, 0, 10 ** 9))
+        untagged = list(BamReader(b).fetch(catalog.CHROM, 0, 10 ** 9))
+        assert [(r.name, r.pos, r.cigar, r.seq) for r in tagged] == \
+            [(r.name, r.pos, r.cigar, r.seq) for r in untagged]
+        assert all(r.get_tag("HP") in (1, 2) for r in tagged)
+        assert all(r.get_tag("HP") is None for r in untagged)

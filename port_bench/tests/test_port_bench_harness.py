@@ -75,7 +75,7 @@ def test_a_new_cell_is_data_only(tmp_path, monkeypatch):
     assert res["correct"] is True
     assert res["attempted"] % 8 == 0 and res["attempted"] >= 8
     assert res["failed"] == 0
-    assert set(res["checks"]) == {"pairhmm_gap", "vcf_gap"}
+    assert set(res["checks"]) == {"pairhmm_gap", "vcf_gap", "unscored_share"}
 
 
 def test_result_line_has_the_contracts_keys(monkeypatch):
@@ -119,8 +119,10 @@ def _canned_window():
     spans = [("pass", 0.5, 4.5, 1), ("pairhmm_batch_auto", 0.9, 1.0, 2),
              ("score_sync", 2.5, 3.6, 2)]
     summary = trace.summarize(ops, spans, 0.5, 4.5)
+    counters = {"cells_launched": 4096, "cells_real": 3072,
+                "reads_from_columns": 300, "reads_fallback": 100}
     return Window(64, metrics_out["stage_seconds"], 128, {"pairhmm": 0.065},
-                  summary)
+                  summary, counters)
 
 
 def test_per_layer_arithmetic_on_a_canned_run():
@@ -136,6 +138,8 @@ def test_per_layer_arithmetic_on_a_canned_run():
     assert read("device.idle_pct") == pytest.approx(100 * (1 - 0.7 / 4))
     # bound over the named kernels' summed device time (0.1 + 0.15 + 0.4)
     assert read("pairhmm_roofline") == pytest.approx(100 * 0.065 / 0.65)
+    assert read("dispatch.padded_cells_pct") == pytest.approx(25.0)
+    assert read("reads.columns_pct") == pytest.approx(75.0)
     # the longest gap, [1.6, 3.0], lies in the pass outside any layer span
     name, secs = w.trace["idle_gaps"][0]
     assert name == "pass" and secs == pytest.approx(1.4)
@@ -150,6 +154,13 @@ def test_readers_return_nothing_where_there_is_nothing_to_read():
     assert read("dispatch.ms_per_locus") is None
     assert read("pairhmm_roofline") is None
     assert read("device.idle_pct") is None
+    # a program that writes no counters, or counts nothing
+    assert read("dispatch.padded_cells_pct") is None
+    assert read("reads.columns_pct") is None
+    w.counters.update(cells_launched=0, cells_real=0, reads_from_columns=0,
+                      reads_fallback=0)
+    assert read("dispatch.padded_cells_pct") is None
+    assert read("reads.columns_pct") is None
 
 
 class _FakeTrace:
@@ -183,5 +194,8 @@ def test_a_traced_run_reads_stages_untraced_and_the_device_traced(
     assert res["breakdown"]["device_ops"][0][0].startswith("void pairhmm")
     s = res["_summary"]
     assert s["loci"] > 0 and s["traced_loci"] > 0
+    # the counters are the untraced window's passes', summed
+    assert s["counters"]["loci_processed"] == s["loci"]
+    assert 0 < s["counters"]["cells_real"] < s["counters"]["cells_launched"]
     assert s["bound_s"]["pairhmm"] > 0
     assert res["attempted"] == s["loci"] + s["traced_loci"]
