@@ -411,7 +411,11 @@ class ModeBAligner:
         element -> table index); with ``reference=True`` the artifact tables
         themselves, built here in numpy.  Returns an opaque dict for
         :meth:`score_reads_batch_finish`, or None if any config falls
-        outside the device kernel envelope."""
+        outside the device kernel envelope.  Its ``elements_real`` and
+        ``elements_launched`` count the row DP's (read column x haplotype
+        row x artifact size) elements: each segment's own columns, rows and
+        artifact sizes, against the padded batch the kernels are handed
+        (B_pad x L_max x R_max x n_d)."""
         configs = list(self.hap.all_configs())
         K = len(configs)
         sides = []                                   # per (k, side) rows
@@ -507,6 +511,7 @@ class ModeBAligner:
         art = self.artifact_inputs(needed, side_segs, L_max, n_d)
         b = 0
         elem = {}
+        elements_real = 0          # (column, row, artifact size) a segment
         for p in range(P):
             for k in range(K):
                 for side in (0, 1):
@@ -523,6 +528,11 @@ class ModeBAligner:
                     kind[b, :hs] = kd
                     stut_ord[b, :hs] = so
                     lprob[p, side] = lp
+                    elements_real += L * hs * max(
+                        [1] + [len(range(blocks[bi].max_del,
+                                         blocks[bi].max_ins + 1,
+                                         blocks[bi].period))
+                               for bi, _opt in sinfo])
                     for s_i, (bi, opt) in enumerate(sinfo):
                         tab[b, s_i] = t_index[(side, bi, opt)] * P + p
                         blk = blocks[bi]
@@ -540,7 +550,9 @@ class ModeBAligner:
                     stut_ord=stut_ord, tab=tab, bl_a=bl_a, d0_a=d0_a,
                     dstep_a=dstep_a, params=params, n_d=n_d, dtype=dtype,
                     alns=alns, seeds=seeds, segs=segs, configs=configs,
-                    sides=sides, elem=elem, lprob=lprob, P=P, K=K, **art)
+                    sides=sides, elem=elem, lprob=lprob, P=P, K=K,
+                    elements_real=elements_real,
+                    elements_launched=B_pad * L_max * R_max * n_d, **art)
         if self.reference:
             prep["A_tab"] = self.host_artifact_tables(prep)
         return prep

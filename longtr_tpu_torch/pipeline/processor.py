@@ -64,6 +64,12 @@ class RunStats:
     # a decode batch's columns, and those that took the fallback path
     reads_from_columns: int = 0
     reads_fallback: int = 0
+    # mode B's work, summed over the genotypers (seq_genotyper.MODE_B_COUNTERS)
+    mode_b_loci: int = 0
+    mode_b_reads: int = 0
+    mode_b_elements_real: int = 0
+    mode_b_elements_launched: int = 0
+    mode_b_host_reads: int = 0
 
 
 class GenotyperPipeline:
@@ -536,6 +542,9 @@ class GenotyperPipeline:
             else:
                 self.stats.num_genotype_fail += 1
             self._checkpoint_mark(group)
+        for gt, *_rest in window:
+            for name, n in gt.mode_b_counts.items():
+                setattr(self.stats, name, getattr(self.stats, name) + n)
 
     def metrics(self) -> dict:
         """Structured run metrics (counters + stage timings in seconds)."""
@@ -557,6 +566,11 @@ class GenotyperPipeline:
             "cells_real": s.cells_real,
             "reads_from_columns": s.reads_from_columns,
             "reads_fallback": s.reads_fallback,
+            "mode_b_loci": s.mode_b_loci,
+            "mode_b_reads": s.mode_b_reads,
+            "mode_b_elements_real": s.mode_b_elements_real,
+            "mode_b_elements_launched": s.mode_b_elements_launched,
+            "mode_b_host_reads": s.mode_b_host_reads,
             "stage_seconds": self.timer.snapshot(),
         }
 

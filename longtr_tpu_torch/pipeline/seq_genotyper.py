@@ -41,6 +41,14 @@ from longtr_tpu_torch.ops import pairhmm
 from longtr_tpu_torch.ops.posterior import genotype_log_priors
 from longtr_tpu_torch.utils.timers import span
 
+# The counters of mode B's work a genotyper keeps (``mode_b_counts``) and
+# the run sums into its --metrics-out: loci and pooled reads scored by mode
+# B, the row DP's (read column x haplotype row x artifact size) elements
+# real and as launched (padding included), and the pooled reads whose row
+# the host made (no valid seed: a zero row; or the f64 host path).
+MODE_B_COUNTERS = ("mode_b_loci", "mode_b_reads", "mode_b_elements_real",
+                   "mode_b_elements_launched", "mode_b_host_reads")
+
 
 class ReadPooler:
     """Dedupe identical read sequences (read_pooler.{h,cpp})."""
@@ -527,6 +535,9 @@ class SeqStutterGenotyper:
         self.log_aln_probs = None        # (num_reads, A)
         self.posteriors = None           # (S, A, A)
         self.sample_total_lls = None
+        # mode B's work at this locus, under the names of the run's
+        # --metrics-out counters (processor.RunStats)
+        self.mode_b_counts = dict.fromkeys(MODE_B_COUNTERS, 0)
         self.initialized = self._build_haplotype(stutter_models)
 
     # ------------------------------------------------------------------
@@ -590,35 +601,46 @@ class SeqStutterGenotyper:
         thread; returns None in that case.  ``--ref-fidelity``,
         ``LONGTR_MODE_B_HOST=1`` and configs outside the row tables'
         envelope score on the host in f64 instead.
+
+        The host phase is the span ``Mode B prepare``; ``mode_b_counts``
+        adds the locus, its pooled reads, the row DP's elements and the
+        reads whose row the host made (a zero row, or the f64 path).
         """
         from longtr_tpu_torch.utils import mathops
         from longtr_tpu_torch.ops.mode_b_device import mode_b_elements_scored
         from longtr_tpu_torch.pipeline.mode_b import (ModeBAligner,
                                                       calc_seed_base)
-        aligner = ModeBAligner(self.haplotype, self.alignment_params,
-                               device=self.device,
-                               reference=self.mode_b_reference)
-        hap_start = self.haplotype.blocks[0].start
-        hap_end = self.haplotype.blocks[-1].end
         A = self.haplotype.num_combs()
         pools = self.pooler.pooled_alns
         scores = np.zeros((len(pools), A))
-        self.pool_seed_positions = np.full(len(pools), -1, dtype=np.int64)
-        for p, aln in enumerate(pools):
-            seed = calc_seed_base(aln, aligner.repeat_starts,
-                                  aligner.repeat_ends, hap_start, hap_end)
-            self.pool_seed_positions[p] = seed
-        valid = np.flatnonzero(self.pool_seed_positions >= 0)
-        self.seed_positions = self.pool_seed_positions[self.pool_index]
-        prep = None
-        if len(valid) and not mathops.ref_fidelity() \
-                and os.environ.get("LONGTR_MODE_B_HOST", "") != "1":
-            # One device call for all (read, config) pairs; the f64 host
-            # path remains the reference-fidelity / envelope scorer.
-            prep = aligner.score_reads_batch_prepare(
-                [pools[p] for p in valid],
-                [int(self.pool_seed_positions[p]) for p in valid])
+        with span("Mode B prepare"):
+            aligner = ModeBAligner(self.haplotype, self.alignment_params,
+                                   device=self.device,
+                                   reference=self.mode_b_reference)
+            hap_start = self.haplotype.blocks[0].start
+            hap_end = self.haplotype.blocks[-1].end
+            self.pool_seed_positions = np.full(len(pools), -1, dtype=np.int64)
+            for p, aln in enumerate(pools):
+                seed = calc_seed_base(aln, aligner.repeat_starts,
+                                      aligner.repeat_ends, hap_start, hap_end)
+                self.pool_seed_positions[p] = seed
+            valid = np.flatnonzero(self.pool_seed_positions >= 0)
+            self.seed_positions = self.pool_seed_positions[self.pool_index]
+            prep = None
+            if len(valid) and not mathops.ref_fidelity() \
+                    and os.environ.get("LONGTR_MODE_B_HOST", "") != "1":
+                # One device call for all (read, config) pairs; the f64 host
+                # path remains the reference-fidelity / envelope scorer.
+                prep = aligner.score_reads_batch_prepare(
+                    [pools[p] for p in valid],
+                    [int(self.pool_seed_positions[p]) for p in valid])
+        counts = self.mode_b_counts
+        counts["mode_b_loci"] = 1          # once, however often it realigns
+        counts["mode_b_reads"] += len(pools)
         if prep is not None:
+            counts["mode_b_elements_real"] += prep["elements_real"]
+            counts["mode_b_elements_launched"] += prep["elements_launched"]
+            counts["mode_b_host_reads"] += len(pools) - len(valid)
             if deferred:
                 def _finish():
                     scores[valid] = aligner.score_reads_batch_finish(prep)
@@ -627,6 +649,7 @@ class SeqStutterGenotyper:
                 return None
             scores[valid] = aligner.score_reads_batch_finish(prep)
         else:
+            counts["mode_b_host_reads"] += len(pools)
             mode_b_elements_scored["host_f64"] += len(valid) * A * 2
             for p in valid:
                 scores[p] = aligner.score_read(
