@@ -10,7 +10,11 @@ and the (block, option) descriptors, and the device phase runs
 :func:`~longtr_tpu_torch.ops.mode_b_device.mode_b_cols` on their output
 (the CUDA kernels on a card, the plain torch versions on the CPU).  The
 host numpy tables of ``_artifact_table_batch`` stay as the reference
-(``reference=True``: numpy tables, plain rows).
+(``reference=True``: numpy tables, plain rows).  The host phase builds the
+device's inputs with array operations: the reads' bytes gathered into
+segments, per-base log-probs gathered from 256-entry tables, and the 2K
+row tables of the K configs broadcast over the reads; they equal the JAX
+package's per-row loop bit for bit.
 
 Reference: HapAligner.cpp — ``process_read`` short path (:855-991),
 ``align_seq_to_hap_short`` (:27-163), ``compute_aln_logprob`` (:165-233) and
@@ -25,6 +29,7 @@ loop in Python (cheap for period-1 blocks — see ops.stutter_hmm).
 
 from __future__ import annotations
 
+import itertools
 
 import numpy as np
 import torch
@@ -48,6 +53,27 @@ ROW_KEYS = ("codes", "quals_a", "lw_tab", "lc_tab", "pre_a", "last",
             "dstep_a", "params")
 ARTIFACT_KEYS = ("seg_codes", "seg_quals", "seg_len", "lw64", "lc64", "tdesc",
                  "blk_bytes", "upstream", "priors", "int_log")
+
+# log P(error) and log P(correct) of each quality byte, the tables every
+# per-base lookup of mode B gathers from: log_prob_* is itself a clamped
+# table, so the gather gives its values bit for bit
+LW64 = np.array([log_prob_error(chr(i)) for i in range(256)])
+LC64 = np.array([log_prob_correct(chr(i)) for i in range(256)])
+LW64.setflags(write=False)
+LC64.setflags(write=False)
+
+
+def _qual_bytes(quals: str) -> np.ndarray:
+    return np.frombuffer(quals.encode("latin1"), dtype=np.uint8)
+
+
+def _segment_index(start, step, lens, width, pad):
+    """(2, P, width) indices into a flat array of segments: segment (side,
+    p) is ``start[side, p] + step[side] * j`` for ``j < lens[side, p]``,
+    and ``pad`` (the index of a pad element) past its end."""
+    j = np.arange(width)
+    idx = start[..., None] + step[:, None, None] * j
+    return np.where(j < lens[..., None], idx, pad)
 
 
 class _RevRepeatInfo:
@@ -437,51 +463,94 @@ class ModeBAligner:
         R_max = _pad_to(max(max(t[0][4], t[1][4]) for t in sides), 8)
 
         P = len(alns)
-        segs = []                                    # per (p, side) read data
-        for aln in alns:
-            quals = aln.base_qualities
-            blw = np.array([log_prob_error(q) for q in quals])
-            blc = np.array([log_prob_correct(q) for q in quals])
-            segs.append((aln.sequence, blw, blc, quals))
-        L_max = _pad_to(max(max(s, len(segs[p][0]) - s - 1)
-                            for p, s in enumerate(seeds)), 8)
-
-        def seg_arrays(p, side):
-            seq, blw, blc, quals = segs[p]
-            s = seeds[p]
-            if side == 0:
-                sseq, sw, sc = seq[:s], blw[:s], blc[:s]
-                squal = quals[:s]
-            else:
-                sseq = seq[s + 1:][::-1]
-                sw = blw[s + 1:][::-1]
-                sc = blc[s + 1:][::-1]
-                squal = quals[s + 1:][::-1]
-            L = len(sseq)
-            codes = np.zeros(L_max, dtype=np.uint8)
-            codes[:L] = np.frombuffer(sseq.encode(), dtype=np.uint8)
-            # qual BYTES ship to the device; the kernel gathers the f32/f64
-            # log-prob values from 256-entry tables (bitwise-equal to the
-            # host lookup — log_prob_* is itself a clamped table,
-            # base_quality.py).  Pad bytes land on arbitrary table entries;
-            # columns past `last` never feed a valid column (the DP only
-            # reads left-to-right along j), so pad values are don't-cares.
-            qb = np.zeros(L_max, dtype=np.uint8)
-            qb[:L] = np.frombuffer(squal.encode("latin1"), dtype=np.uint8)
-            cs = np.cumsum(sc)
-            pre = np.zeros(L_max)
-            pre[1:L] = cs[:-1]
-            lp = float(cs[-1]) if L else 0.0
-            return sseq, sw, sc, codes, qb, pre, lp, L
-
         B = P * K * 2
         B_pad = _pad_to(B, 32)
-        # The batched device inputs are allocated in the final device dtype:
-        # assignment casts each f64 row exactly as a whole-array astype would
-        # at dispatch, so the finish phase copies them to the device as they
-        # are.  Narrow byte formats (uint8 codes/quals/row tables, the
-        # per-base log-probs as 256-entry gather tables) keep the copy
-        # small, and each is exact: the device gathers the same dtype values.
+        # All reads' bases and quality bytes end to end, and a pad byte
+        # past them that every column past a segment's end gathers.  The
+        # per-base log-probs are gathers of the 256-entry tables; the pad's
+        # log P(correct) is 0, so a segment's running sum ends at its end.
+        seqs = [aln.sequence for aln in alns]
+        quals = [aln.base_qualities for aln in alns]
+        n = np.array([len(seq) for seq in seqs], dtype=np.int64)
+        s = np.array(seeds, dtype=np.int64)
+        off = np.cumsum(n) - n
+        pad = int(n.sum())
+        cat = np.frombuffer(("".join(seqs) + "\0").encode(), dtype=np.uint8)
+        qcat = _qual_bytes("".join(quals) + "\0")
+        lw, lc = LW64[qcat], LC64[qcat]
+        lc[pad] = 0.0
+        segs = [(seq, lw[o:o + m], lc[o:o + m], q)     # per read
+                for seq, q, o, m in zip(seqs, quals, off, n)]
+        # each read's two segments, (side, p): left of the seed, and right
+        # of it reversed; the row DP reads them so, the artifact tables
+        # reversed again
+        lens = np.stack([s, n - s - 1])
+        L_max = _pad_to(int(lens.max()), 8)
+        valid = np.arange(L_max) < lens[..., None]
+        fwd = _segment_index(np.stack([off, off + n - 1]), np.array([1, -1]),
+                             lens, L_max, pad)
+        rev = _segment_index(np.stack([off + s - 1, off + s + 1]),
+                             np.array([-1, 1]), lens, L_max, pad)
+        # numpy's cumsum adds in order: each prefix is a running sum's
+        # double
+        cs = np.cumsum(lc[fwd], axis=2)
+        pre = np.zeros_like(cs)
+        pre[..., 1:] = np.where(valid[..., 1:], cs[..., :-1], 0.0)
+        # a segment's last prefix; an empty one's is the pad's 0
+        lp = np.take_along_axis(cs, np.maximum(lens - 1, 0)[..., None],
+                                axis=2)[..., 0]
+
+        # one artifact table per (side, block, option) and read segment:
+        # table t of segment p is row t * P + p of the device's tables
+        needed = sorted({(side, bi, opt)
+                         for k in range(K) for side in (0, 1)
+                         for (bi, opt) in sides[k][side][3]})
+        t_index = {key: t for t, key in enumerate(needed)}
+        art = self._artifact_arrays(needed, cat[rev], qcat[rev],
+                                    lens.astype(np.int32), n_d)
+
+        # The 2K row tables, stacked to R_max and S_max: each row of the
+        # batch is one of them with one of the 2P segments.  ``t_of`` is a
+        # stutter ordinal's table index, -1 past the (k, side)'s blocks.
+        row_hc = np.zeros((K, 2, R_max), dtype=np.uint8)
+        row_kind = np.full((K, 2, R_max), 3, dtype=np.uint8)
+        row_so = np.zeros((K, 2, R_max), dtype=np.uint8)
+        t_of = np.full((K, 2, S_max), -1, dtype=np.int64)
+        row_bl = np.ones((K, 2, S_max), dtype=np.int32)
+        row_d0 = np.zeros((K, 2, S_max), dtype=np.int32)
+        row_dstep = np.ones((K, 2, S_max), dtype=np.int32)
+        seg_cols = [int(x) for x in lens.sum(axis=1)]
+        elements_real = 0          # (column, row, artifact size) a segment
+        for k in range(K):
+            for side in (0, 1):
+                hc, kd, so, sinfo, hs = sides[k][side]
+                blocks = self.fw_blocks if side == 0 else self.rev_blocks
+                row_hc[k, side, :hs] = hc
+                row_kind[k, side, :hs] = kd
+                row_so[k, side, :hs] = so
+                sizes = [1]
+                for s_i, (bi, opt) in enumerate(sinfo):
+                    blk = blocks[bi]
+                    t_of[k, side, s_i] = t_index[(side, bi, opt)]
+                    row_bl[k, side, s_i] = len(blk.get_seq(opt))
+                    row_d0[k, side, s_i] = blk.max_del
+                    row_dstep[k, side, s_i] = blk.period
+                    sizes.append(len(range(blk.max_del, blk.max_ins + 1,
+                                           blk.period)))
+                elements_real += seg_cols[side] * hs * max(sizes)
+
+        # Row b is (read p, config k, side) in that order; padding rows
+        # past B keep the fill values.  The batched device inputs are
+        # allocated in the final device dtype: assignment casts each f64
+        # value exactly as a whole-array astype would at dispatch, so the
+        # finish phase copies them to the device as they are.  Narrow byte
+        # formats (uint8 codes/quals/row tables, the per-base log-probs as
+        # 256-entry gather tables) keep the copy small, and each is exact:
+        # the device gathers the same dtype values.  Quality bytes past a
+        # segment's end are don't-cares: columns past `last` never feed a
+        # valid column (the DP only reads left-to-right along j).
+        b = np.arange(B)
+        p_b, k_b, side_b = b // (2 * K), b // 2 % K, b % 2
         codes = np.zeros((B_pad, L_max), dtype=np.uint8)
         quals_a = np.zeros((B_pad, L_max), dtype=np.uint8)
         pre_a = np.zeros((B_pad, L_max), dtype=dtype)
@@ -493,60 +562,28 @@ class ModeBAligner:
         bl_a = np.ones((B_pad, S_max), dtype=np.int32)
         d0_a = np.zeros((B_pad, S_max), dtype=np.int32)
         dstep_a = np.ones((B_pad, S_max), dtype=np.int32)
-        lprob = np.zeros((P, 2))
-
-        seg_cache = {}
-        side_segs = {0: [], 1: []}      # (bases, quality bytes) per segment
-        for p in range(P):
-            for side in (0, 1):
-                arrs = seg_cache[(p, side)] = seg_arrays(p, side)
-                L = arrs[7]
-                side_segs[side].append((arrs[3][:L], arrs[4][:L]))
-        # one artifact table per (side, block, option) and read segment:
-        # table t of segment p is row t * P + p of the device's tables
-        needed = sorted({(side, bi, opt)
-                         for k in range(K) for side in (0, 1)
-                         for (bi, opt) in sides[k][side][3]})
-        t_index = {key: t for t, key in enumerate(needed)}
-        art = self.artifact_inputs(needed, side_segs, L_max, n_d)
-        b = 0
-        elem = {}
-        elements_real = 0          # (column, row, artifact size) a segment
-        for p in range(P):
-            for k in range(K):
-                for side in (0, 1):
-                    fw, rv, _seqs = sides[k]
-                    rows = fw if side == 0 else rv
-                    blocks = self.fw_blocks if side == 0 else self.rev_blocks
-                    (sseq, sw, sc, cod, qb, pre, lp, L) = seg_cache[(p, side)]
-                    codes[b] = cod
-                    quals_a[b] = qb
-                    pre_a[b] = pre
-                    last[b] = max(L - 1, 0)
-                    hc, kd, so, sinfo, hs = rows
-                    hapchar[b, :hs] = hc
-                    kind[b, :hs] = kd
-                    stut_ord[b, :hs] = so
-                    lprob[p, side] = lp
-                    elements_real += L * hs * max(
-                        [1] + [len(range(blocks[bi].max_del,
-                                         blocks[bi].max_ins + 1,
-                                         blocks[bi].period))
-                               for bi, _opt in sinfo])
-                    for s_i, (bi, opt) in enumerate(sinfo):
-                        tab[b, s_i] = t_index[(side, bi, opt)] * P + p
-                        blk = blocks[bi]
-                        bl_a[b, s_i] = len(blk.get_seq(opt))
-                        d0_a[b, s_i] = blk.max_del
-                        dstep_a[b, s_i] = blk.period
-                    elem[(p, k, side)] = b
-                    b += 1
+        codes[:B] = cat[fwd][side_b, p_b]
+        quals_a[:B] = qcat[fwd][side_b, p_b]
+        pre_a[:B] = pre[side_b, p_b]
+        last[:B] = np.maximum(lens - 1, 0)[side_b, p_b]
+        hapchar[:B] = row_hc[k_b, side_b]
+        kind[:B] = row_kind[k_b, side_b]
+        stut_ord[:B] = row_so[k_b, side_b]
+        t_b = t_of[k_b, side_b]
+        tab[:B] = np.where(t_b >= 0, t_b * P + p_b[:, None], 0)
+        bl_a[:B] = row_bl[k_b, side_b]
+        d0_a[:B] = row_d0[k_b, side_b]
+        dstep_a[:B] = row_dstep[k_b, side_b]
+        elem = dict(zip(itertools.product(range(P), range(K), (0, 1)),
+                        range(B)))
+        lprob = np.ascontiguousarray(lp.T)
 
         params = np.array([self.i2i, self.i2m, self.d2d, self.d2m,
                            self.m2m, self.m2i, self.m2d], dtype=dtype)
         prep = dict(codes=codes, quals_a=quals_a,
                     lw_tab=art["lw64"].astype(dtype),
-                    lc_tab=art["lc64"].astype(dtype), pre_a=pre_a, last=last, hapchar=hapchar, kind=kind,
+                    lc_tab=art["lc64"].astype(dtype), pre_a=pre_a, last=last,
+                    hapchar=hapchar, kind=kind,
                     stut_ord=stut_ord, tab=tab, bl_a=bl_a, d0_a=d0_a,
                     dstep_a=dstep_a, params=params, n_d=n_d, dtype=dtype,
                     alns=alns, seeds=seeds, segs=segs, configs=configs,
@@ -559,23 +596,31 @@ class ModeBAligner:
 
     def artifact_inputs(self, tables, side_segs, L_max, n_d):
         """What the device builds the artifact tables from
+        (:mod:`longtr_tpu_torch.ops.mode_b_artifacts`), as
+        :meth:`_artifact_arrays` gives it, for read segments listed one by
+        one: ``side_segs[side]`` lists the segments of a side in their own
+        order as (base bytes, quality bytes) uint8 arrays of at most
+        ``L_max`` bytes."""
+        lens = np.array([[len(c) for c, _q in side_segs[side]]
+                         for side in (0, 1)], dtype=np.int64).reshape(2, -1)
+        flat = [np.concatenate([x[i][:len(x[0])] for side in (0, 1)
+                                for x in side_segs[side]]
+                               + [np.zeros(1, np.uint8)]).astype(np.uint8)
+                for i in (0, 1)]
+        off = (np.cumsum(lens) - lens.ravel()).reshape(lens.shape)
+        rev = _segment_index(off + lens - 1, np.array([-1, -1]), lens, L_max,
+                             int(lens.sum()))
+        return self._artifact_arrays(tables, flat[0][rev], flat[1][rev],
+                                     lens.astype(np.int32), n_d)
+
+    def _artifact_arrays(self, tables, seg_codes, seg_quals, seg_len, n_d):
+        """What the device builds the artifact tables from
         (:mod:`longtr_tpu_torch.ops.mode_b_artifacts`): each side's read
-        segments reversed (``encode_segs_batch``'s order) as base and
-        quality bytes, and per (side, block, option) of ``tables`` one
-        descriptor row, prior row and slices of the block-byte and
-        upstream arrays.  ``side_segs[side]`` lists the segments of a side
-        in their own order as (base bytes, quality bytes) uint8 arrays of
-        at most ``L_max`` bytes."""
-        P = len(side_segs[0])
-        seg_codes = np.zeros((2, P, L_max), dtype=np.uint8)
-        seg_quals = np.zeros((2, P, L_max), dtype=np.uint8)
-        seg_len = np.zeros((2, P), dtype=np.int32)
-        for side in (0, 1):
-            for p, (cod, qb) in enumerate(side_segs[side]):
-                L = len(cod)
-                seg_codes[side, p, :L] = cod[:L][::-1]
-                seg_quals[side, p, :L] = qb[:L][::-1]
-                seg_len[side, p] = L
+        segments reversed (``encode_segs_batch``'s order), ``seg_codes``
+        and ``seg_quals`` (2, P, L_max) base and quality bytes zero past
+        their ``seg_len``, the 256-entry log-prob tables, and per (side,
+        block, option) of ``tables`` one descriptor row, prior row and
+        slices of the block-byte and upstream arrays."""
         needed = list(tables)
         T = len(needed)
         tdesc = np.zeros((T, 9), dtype=np.int32)
@@ -607,9 +652,7 @@ class ModeBAligner:
             up_off += len(ups)
             n_log = max(n_log, sa.block_len + 2)
         return dict(seg_codes=seg_codes, seg_quals=seg_quals, seg_len=seg_len,
-                    lw64=np.array([log_prob_error(chr(i)) for i in range(256)]),
-                    lc64=np.array([log_prob_correct(chr(i))
-                                   for i in range(256)]),
+                    lw64=LW64.copy(), lc64=LC64.copy(),
                     tdesc=tdesc, priors=priors,
                     blk_bytes=np.concatenate(blk_parts + [np.zeros(1, np.uint8)]),
                     upstream=np.concatenate(up_parts + [np.zeros(1, np.int32)]),
@@ -693,9 +736,8 @@ class ModeBAligner:
         """LLs against every haplotype config, in enumeration order."""
         seq = aln.sequence
         L = len(seq)
-        quals = aln.base_qualities
-        blw = np.array([log_prob_error(q) for q in quals])
-        blc = np.array([log_prob_correct(q) for q in quals])
+        q = _qual_bytes(aln.base_qualities)
+        blw, blc = LW64[q], LC64[q]
 
         left_seq = seq[:seed_base]
         left_w, left_c = blw[:seed_base], blc[:seed_base]

@@ -1,12 +1,14 @@
 """The port's mode B (longtr_tpu_torch.pipeline.mode_b and the plain torch
 rows of ops.mode_b_device) against longtr_tpu's, on the CPU.
 
-* The host phase is the JAX package's code: its table dict equals
-  longtr_tpu's array for array, and the artifact tables it builds on the
-  reference path (``reference=True``, numpy) equal longtr_tpu's wherever
-  an element reads them (the port keeps one table per (side, block,
-  option, read) and an index per element, where longtr_tpu copies a table
-  per element).
+* The host phase's table dict equals longtr_tpu's array for array, and
+  the artifact tables it builds on the reference path (``reference=True``,
+  numpy) equal longtr_tpu's wherever an element reads them (the port keeps
+  one table per (side, block, option, read) and an index per element,
+  where longtr_tpu copies a table per element); also at the mode-B cell's
+  scale (``hp_mix_scale``).  Its array operations give every key, dtype
+  and value of the loop over bases and (read, config, side) rows they
+  replace, kept at the end of this file as the oracle.
 * float64: the plain rows equal the host numpy transcription
   (``_align_short``, itself held to HapAligner.cpp) on every real row,
   tolerance 0, and the marginalized LLs equal both the host ``score_read``
@@ -38,14 +40,22 @@ import torch
 from longtr_tpu.ops.mode_b_device import mode_b_cols as jax_mode_b_cols
 from longtr_tpu.pipeline.mode_b import ModeBAligner as JaxAligner
 from longtr_tpu_torch.ops import mode_b_cuda, mode_b_device
+from longtr_tpu_torch.ops.mode_b_artifacts import prefix_doubles
+from longtr_tpu_torch.ops.mode_b_device import _pad_to
+from longtr_tpu_torch.pipeline import mode_b as port_mode_b
 from longtr_tpu_torch.pipeline.mode_b import ModeBAligner as PortAligner
+from longtr_tpu_torch.utils.base_quality import log_prob_correct, log_prob_error
+from longtr_tpu_torch.utils.mathops import int_log
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_cuda import (MODE_B_CASES, TABLE_KEYS, homopolymer_hap,  # noqa: E402
-                             homopolymer_read, mode_b_case,
+                             homopolymer_read, mode_b_case, port_classes,
                              synthetic_tables)
 
 CASES = sorted(MODE_B_CASES)
+# MODE_B_CASES and a case at the mode-B cell's scale, for the host phase
+# alone (the host matrices of test_mode_b_cols_f64_exact would take minutes)
+PREPARE_CASES = CASES + ["hp_mix_scale"]
 # the port's aligner on the CPU (its default device is the card)
 ModeBAligner = functools.partial(PortAligner, device="cpu")
 
@@ -83,11 +93,54 @@ def _jax_cols(prep):
     return np.asarray(jax_mode_b_cols(*args, n_d=prep["n_d"]))
 
 
-@pytest.mark.parametrize("case", CASES)
+def hp_mix_scale(cls):
+    """A locus of the mode-B cell's shape (``hp_mix``): one T-homopolymer
+    with four alleles between 500-base flanks, 44 reads of unequal length
+    (each starts and ends at its own place in the flanks), their seeds in
+    a flank so that both segments run 250-500 bases, but one read seeded
+    at base 1 and one at its length - 2.  Returns (haplotype, alignments,
+    seeds)."""
+    rng = np.random.default_rng(2101)
+    fl = "".join(rng.choice(list("ACGT"), 500))
+    fr = "".join(rng.choice(list("ACGT"), 500))
+    alleles = [14, 11, 17, 15]
+    hap = homopolymer_hap(alleles, fl, fr, cls=cls)
+    alns, seeds = [], []
+    for i in range(44):
+        copies = int(rng.choice(alleles))
+        if i < 2:          # short reads: one segment of one base
+            a, e = 250, 230
+        else:
+            a, e = int(rng.integers(0, 241)), int(rng.integers(260, 481))
+        aln = homopolymer_read(copies, fl[a:], fr[:e], rng, ref_copies=14,
+                               cls=cls)
+        n, rep = len(aln.sequence), (len(fl) - a, len(fl) - a + copies)
+        if i < 2:
+            seeds.append(1 if i == 0 else n - 2)
+        else:
+            lo, hi = max(250, n - 501), min(500, n - 251)
+            seed = rep[0]
+            while rep[0] <= seed < rep[1]:
+                seed = int(rng.integers(lo, hi + 1))
+            seeds.append(seed)
+        alns.append(aln)
+    return hap, alns, seeds
+
+
+def prepare_case(name, aligner_cls, cls=None):
+    """(aligner, alignments, seeds) of a case of PREPARE_CASES, its objects
+    of ``cls``'s classes (default the port's)."""
+    if name in MODE_B_CASES:
+        return mode_b_case(name, aligner_cls, cls)
+    hap, alns, seeds = hp_mix_scale(cls or port_classes())
+    return aligner_cls(hap), alns, seeds
+
+
+@pytest.mark.parametrize("case", PREPARE_CASES)
 def test_prepare_tables_equal_jax(case):
-    port, alns, seeds = mode_b_case(
+    port, alns, seeds = prepare_case(
         case, functools.partial(ModeBAligner, reference=True))
-    jaxa, jalns, jseeds = mode_b_case(case, JaxAligner, jax_classes())
+    jaxa, jalns, jseeds = prepare_case(case, JaxAligner, jax_classes())
     assert jseeds == seeds
     for dtype in (np.float32, np.float64):
         got = port.score_reads_batch_prepare(alns, seeds, dtype)
@@ -239,3 +292,242 @@ def test_score_read_prefers_matching_allele():
         assert h2a[int(np.argmax(scores))] == allele
         batch = aligner.score_reads_batch([aln], [seed], np.float64)
         np.testing.assert_array_equal(batch[0], scores)
+
+
+# ---------------------------------------------------------------------------
+# The host phase's array operations against its loop, as it was written
+# before them, copied here unchanged.
+
+def prepare_per_row(aligner, alns, seeds, dtype=np.float32):
+    """``ModeBAligner.score_reads_batch_prepare`` as a loop over bases and
+    over (read, config, side) rows: the oracle of its array operations,
+    which have to give every key, dtype and value of it."""
+    configs = list(aligner.hap.all_configs())
+    K = len(configs)
+    sides = []                                   # per (k, side) rows
+    n_d = 1
+    for k, config in enumerate(configs):
+        rev_config = tuple(reversed(config))
+        fw_seqs = [b.get_seq(c) for b, c in zip(aligner.fw_blocks, config)]
+        rv_seqs = [b.get_seq(c) for b, c in
+                   zip(aligner.rev_blocks, rev_config)]
+        fw = aligner._row_tables(aligner.fw_blocks, config, fw_seqs)
+        rv = aligner._row_tables(aligner.rev_blocks, rev_config, rv_seqs)
+        if fw is None or rv is None:
+            return None
+        sides.append((fw, rv, fw_seqs))
+    for b in aligner.fw_blocks:
+        if b.repeat_info is not None:
+            n_d = max(n_d, len(range(b.max_del, b.max_ins + 1, b.period)))
+    S_max = max(len(t[0][3]) for t in sides) or 1
+    R_max = _pad_to(max(max(t[0][4], t[1][4]) for t in sides), 8)
+
+    P = len(alns)
+    segs = []                                    # per (p, side) read data
+    for aln in alns:
+        quals = aln.base_qualities
+        blw = np.array([log_prob_error(q) for q in quals])
+        blc = np.array([log_prob_correct(q) for q in quals])
+        segs.append((aln.sequence, blw, blc, quals))
+    L_max = _pad_to(max(max(s, len(segs[p][0]) - s - 1)
+                        for p, s in enumerate(seeds)), 8)
+
+    def seg_arrays(p, side):
+        seq, blw, blc, quals = segs[p]
+        s = seeds[p]
+        if side == 0:
+            sseq, sw, sc = seq[:s], blw[:s], blc[:s]
+            squal = quals[:s]
+        else:
+            sseq = seq[s + 1:][::-1]
+            sw = blw[s + 1:][::-1]
+            sc = blc[s + 1:][::-1]
+            squal = quals[s + 1:][::-1]
+        L = len(sseq)
+        codes = np.zeros(L_max, dtype=np.uint8)
+        codes[:L] = np.frombuffer(sseq.encode(), dtype=np.uint8)
+        # qual BYTES ship to the device; the kernel gathers the f32/f64
+        # log-prob values from 256-entry tables (bitwise-equal to the
+        # host lookup — log_prob_* is itself a clamped table,
+        # base_quality.py).  Pad bytes land on arbitrary table entries;
+        # columns past `last` never feed a valid column (the DP only
+        # reads left-to-right along j), so pad values are don't-cares.
+        qb = np.zeros(L_max, dtype=np.uint8)
+        qb[:L] = np.frombuffer(squal.encode("latin1"), dtype=np.uint8)
+        cs = np.cumsum(sc)
+        pre = np.zeros(L_max)
+        pre[1:L] = cs[:-1]
+        lp = float(cs[-1]) if L else 0.0
+        return sseq, sw, sc, codes, qb, pre, lp, L
+
+    B = P * K * 2
+    B_pad = _pad_to(B, 32)
+    # The batched device inputs are allocated in the final device dtype:
+    # assignment casts each f64 row exactly as a whole-array astype would
+    # at dispatch, so the finish phase copies them to the device as they
+    # are.  Narrow byte formats (uint8 codes/quals/row tables, the
+    # per-base log-probs as 256-entry gather tables) keep the copy
+    # small, and each is exact: the device gathers the same dtype values.
+    codes = np.zeros((B_pad, L_max), dtype=np.uint8)
+    quals_a = np.zeros((B_pad, L_max), dtype=np.uint8)
+    pre_a = np.zeros((B_pad, L_max), dtype=dtype)
+    last = np.zeros(B_pad, dtype=np.int32)
+    hapchar = np.zeros((B_pad, R_max), dtype=np.uint8)
+    kind = np.full((B_pad, R_max), 3, dtype=np.uint8)
+    stut_ord = np.zeros((B_pad, R_max), dtype=np.uint8)
+    tab = np.zeros((B_pad, S_max), dtype=np.int32)
+    bl_a = np.ones((B_pad, S_max), dtype=np.int32)
+    d0_a = np.zeros((B_pad, S_max), dtype=np.int32)
+    dstep_a = np.ones((B_pad, S_max), dtype=np.int32)
+    lprob = np.zeros((P, 2))
+
+    seg_cache = {}
+    side_segs = {0: [], 1: []}      # (bases, quality bytes) per segment
+    for p in range(P):
+        for side in (0, 1):
+            arrs = seg_cache[(p, side)] = seg_arrays(p, side)
+            L = arrs[7]
+            side_segs[side].append((arrs[3][:L], arrs[4][:L]))
+    # one artifact table per (side, block, option) and read segment:
+    # table t of segment p is row t * P + p of the device's tables
+    needed = sorted({(side, bi, opt)
+                     for k in range(K) for side in (0, 1)
+                     for (bi, opt) in sides[k][side][3]})
+    t_index = {key: t for t, key in enumerate(needed)}
+    art = artifact_inputs_per_segment(aligner, needed, side_segs, L_max, n_d)
+    b = 0
+    elem = {}
+    elements_real = 0          # (column, row, artifact size) a segment
+    for p in range(P):
+        for k in range(K):
+            for side in (0, 1):
+                fw, rv, _seqs = sides[k]
+                rows = fw if side == 0 else rv
+                blocks = aligner.fw_blocks if side == 0 else aligner.rev_blocks
+                (sseq, sw, sc, cod, qb, pre, lp, L) = seg_cache[(p, side)]
+                codes[b] = cod
+                quals_a[b] = qb
+                pre_a[b] = pre
+                last[b] = max(L - 1, 0)
+                hc, kd, so, sinfo, hs = rows
+                hapchar[b, :hs] = hc
+                kind[b, :hs] = kd
+                stut_ord[b, :hs] = so
+                lprob[p, side] = lp
+                elements_real += L * hs * max(
+                    [1] + [len(range(blocks[bi].max_del,
+                                     blocks[bi].max_ins + 1,
+                                     blocks[bi].period))
+                           for bi, _opt in sinfo])
+                for s_i, (bi, opt) in enumerate(sinfo):
+                    tab[b, s_i] = t_index[(side, bi, opt)] * P + p
+                    blk = blocks[bi]
+                    bl_a[b, s_i] = len(blk.get_seq(opt))
+                    d0_a[b, s_i] = blk.max_del
+                    dstep_a[b, s_i] = blk.period
+                elem[(p, k, side)] = b
+                b += 1
+
+    params = np.array([aligner.i2i, aligner.i2m, aligner.d2d, aligner.d2m,
+                       aligner.m2m, aligner.m2i, aligner.m2d], dtype=dtype)
+    prep = dict(codes=codes, quals_a=quals_a,
+                lw_tab=art["lw64"].astype(dtype),
+                lc_tab=art["lc64"].astype(dtype), pre_a=pre_a, last=last,
+                hapchar=hapchar, kind=kind,
+                stut_ord=stut_ord, tab=tab, bl_a=bl_a, d0_a=d0_a,
+                dstep_a=dstep_a, params=params, n_d=n_d, dtype=dtype,
+                alns=alns, seeds=seeds, segs=segs, configs=configs,
+                sides=sides, elem=elem, lprob=lprob, P=P, K=K,
+                elements_real=elements_real,
+                elements_launched=B_pad * L_max * R_max * n_d, **art)
+    if aligner.reference:
+        prep["A_tab"] = aligner.host_artifact_tables(prep)
+    return prep
+
+
+def artifact_inputs_per_segment(aligner, tables, side_segs, L_max, n_d):
+    """``ModeBAligner.artifact_inputs`` as a loop over segments, the
+    oracle's."""
+    P = len(side_segs[0])
+    seg_codes = np.zeros((2, P, L_max), dtype=np.uint8)
+    seg_quals = np.zeros((2, P, L_max), dtype=np.uint8)
+    seg_len = np.zeros((2, P), dtype=np.int32)
+    for side in (0, 1):
+        for p, (cod, qb) in enumerate(side_segs[side]):
+            L = len(cod)
+            seg_codes[side, p, :L] = cod[:L][::-1]
+            seg_quals[side, p, :L] = qb[:L][::-1]
+            seg_len[side, p] = L
+    needed = list(tables)
+    T = len(needed)
+    tdesc = np.zeros((T, 9), dtype=np.int32)
+    priors = np.zeros((T, n_d))
+    blk_parts, up_parts = [], []
+    blk_off = up_off = 0
+    n_log = 2
+    for t, (side, bi, opt) in enumerate(needed):
+        blocks = aligner.fw_blocks if side == 0 else aligner.rev_blocks
+        saln = aligner._fw_stutter if side == 0 else aligner._rev_stutter
+        blk, sa = blocks[bi], saln[bi][opt]
+        d_list = list(range(blk.max_del, blk.max_ins + 1, blk.period))
+        if 1 + max(sa.num_deletions, 1) + max(sa.num_insertions, 1) \
+                > prefix_doubles(n_d):
+            raise ValueError(f"block {bi} option {opt}: deletion and "
+                             "insertion multiples exceed the artifact "
+                             "sizes")
+        tdesc[t] = (side, sa.block_len, blk.period, blk.max_del,
+                    len(d_list), sa.num_deletions, sa.num_insertions,
+                    blk_off, up_off)
+        for di, D in enumerate(d_list):
+            priors[t, di] = blk.log_prob_pcr_artifact(opt, D)
+        blk_parts.append(np.frombuffer(sa.block_seq[::-1].encode(),
+                                       dtype=np.uint8))
+        ups = np.concatenate([np.asarray(u, dtype=np.int64)
+                              for u in sa.upstream])
+        up_parts.append(ups.astype(np.int32))
+        blk_off += sa.block_len
+        up_off += len(ups)
+        n_log = max(n_log, sa.block_len + 2)
+    return dict(seg_codes=seg_codes, seg_quals=seg_quals, seg_len=seg_len,
+                lw64=np.array([log_prob_error(chr(i)) for i in range(256)]),
+                lc64=np.array([log_prob_correct(chr(i))
+                               for i in range(256)]),
+                tdesc=tdesc, priors=priors,
+                blk_bytes=np.concatenate(blk_parts + [np.zeros(1, np.uint8)]),
+                upstream=np.concatenate(up_parts + [np.zeros(1, np.int32)]),
+                int_log=np.array([int_log(n) for n in range(n_log)]),
+                tables=needed)
+
+
+def _assert_same(got, want, key):
+    """Equal key for key, array for array (values and dtypes)."""
+    if isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype, key
+        np.testing.assert_array_equal(got, want, err_msg=str(key))
+    elif isinstance(want, dict):
+        assert set(got) == set(want), key
+        for k in want:
+            _assert_same(got[k], want[k], (key, k))
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), key
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, (key, i))
+    else:
+        assert type(got) is type(want) and got == want, key
+
+
+@pytest.mark.parametrize("case", PREPARE_CASES)
+def test_prepare_equals_the_per_row_loop(case):
+    aligner, alns, seeds = prepare_case(case, ModeBAligner)
+    for dtype in (np.float32, np.float64):
+        got = aligner.score_reads_batch_prepare(alns, seeds, dtype)
+        want = prepare_per_row(aligner, alns, seeds, dtype)
+        _assert_same(got, want, "prep")
+        assert got["elem"] == want["elem"]
+
+
+def test_quality_tables_are_log_prob_of_every_byte():
+    for i in range(256):
+        assert port_mode_b.LW64[i] == log_prob_error(chr(i))
+        assert port_mode_b.LC64[i] == log_prob_correct(chr(i))
+    assert port_mode_b.LW64.dtype == port_mode_b.LC64.dtype == np.float64
