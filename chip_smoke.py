@@ -10,7 +10,7 @@ Phases, one line or more each:
    longtr_tpu_torch/_build/, at first use).
 2. kernels — seeded batches through every variant of the resident kernel
    K1 that takes their width (warp: one warp a pair; block: one block of
-   warps a pair; smem: the rows in shared memory), both kernels of K2
+   warps a pair), both kernels of K2
    (cluster: one thread-block cluster a pair, up to 65536 columns;
    workspace: the rows in device memory, any width), the plain torch scan
    on the card and the native host scorer (but for the three largest
@@ -30,8 +30,9 @@ Phases, one line or more each:
    sweep recorded in PERF.md (the guard of cluster_shape's choice).  Mode
    B at bench.py's shape (512 pooled reads of a 35 bp | A x 18 | 35 bp
    locus with -2/-1/+1 alternates): the artifact kernel's float32 tables
-   must equal the host's numpy tables (tolerance 0; the float64 entries
-   that differ before the cast are counted), there and on 12 random repeat
+   must equal the plain version's built on the CPU (tolerance 0; the
+   float64 entries that differ before the cast are counted), there and on
+   12 random repeat
    blocks; its and the warp row kernel's device time a call is read from
    torch.profiler beside the CUDA events; both row kernels (warp and
    block),
@@ -44,7 +45,7 @@ Phases, one line or more each:
    into prepare, dispatch and marginalize.
 3. e2e     — the `longtr` CLI of the port, each run twice: on the card, and
    as the reference, with pair scoring given to the native host scorer and
-   mode B to its reference path (the host's numpy artifact tables and the
+   mode B to the plain versions (the artifact tables built on the CPU, the
    plain rows on the card).  Catalogs: 512 short STRs, with and without
    --stutter-align-len 25 (one locus in six is an A homopolymer, so mode B
    and the pair-HMM both run); 24 VNTRs of 500-3000 bp; and the dryrun
@@ -55,13 +56,14 @@ Phases, one line or more each:
    may have been scored off the card, but for mode-B elements outside the
    row tables' envelope, which the host scores by design.  The STR runs
    take K1's warp variant and the VNTR run its block variant; a second
-   VNTR run lowers the width thresholds so that the smem variant and K2's
-   workspace kernel take its batches, a third so that K2's cluster kernel
-   takes them.  The mode-B runs take the artifact warp kernel and the warp
+   VNTR run lowers the width thresholds so that K2's cluster and workspace
+   kernels take its batches, a third so that K2's cluster kernel takes
+   them.  The mode-B runs take the artifact warp kernel and the warp
    row kernel; a second mode-B dryrun sends its rows to the block kernel.
    The device-posterior run takes the window posteriors kernel.  The
-   mode-B runs print the Haplotype build (where the reference builds its
-   tables) and Mode B dispatch seconds of both runs.  The window
+   mode-B runs print the Haplotype build and Mode B dispatch seconds of
+   both runs (the reference builds its tables on the CPU in the latter).
+   The window
    posteriors (J3) on real windows: the 512-STR catalog once more with
    LONGTR_DEVICE_POSTERIOR=1 must give the VCF body of the runs without
    it; on each window's recorded inputs the kernel must meet
@@ -126,6 +128,7 @@ tables are float64 work, over 34 TFLOP/s (float64 outside the tensor
 cores, the same data sheet), counted on the run's data by artifact_ops.
 """
 
+import contextlib
 import gc
 import gzip
 import json
@@ -335,19 +338,21 @@ def bench_mode_b_locus(device):
     return aligner, [pools[i] for i in keep], [int(seeds[i]) for i in keep]
 
 
-def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label):
-    """The artifact kernel's float32 tables against the host numpy code's
-    at tolerance 0; returns (the kernel's float32 tables on the card,
-    float64 entries that differ before the cast, entries, max |float64
-    difference|, the host's tables' seconds, max |float32 difference|)."""
+def artifacts_vs_plain(inp, n_d, dev, mbc, label):
+    """The artifact kernel's float32 tables against the plain version's
+    float64 tables run on the CPU, cast, at tolerance 0; returns (the
+    kernel's float32 tables on the card, float64 entries that differ
+    before the cast, entries, max |float64 difference|, the plain tables'
+    seconds on the CPU, max |float32 difference|)."""
     import numpy as np
     import torch
+    from longtr_tpu_torch.ops.mode_b_artifacts import mode_b_artifacts_plain
     from test_torch_cuda import ARTIFACT_KEYS
-    g = [torch.from_numpy(np.ascontiguousarray(inp[k])).to(dev)
-         for k in ARTIFACT_KEYS]
+    cpu = [torch.from_numpy(np.ascontiguousarray(inp[k]))
+           for k in ARTIFACT_KEYS]
+    g = [x.to(dev) for x in cpu]
     t = time.perf_counter()
-    host = aligner.host_artifact_tables(dict(inp, P=P, n_d=n_d,
-                                             dtype=np.float64))
+    host = mode_b_artifacts_plain(*cpu, n_d=n_d, dtype=torch.float64).numpy()
     host_s = time.perf_counter() - t
     name = "mode_b_artifacts"
     got32 = mbc.mode_b_artifacts(*g, n_d=n_d)
@@ -357,7 +362,7 @@ def artifacts_vs_host(aligner, inp, P, n_d, dev, mbc, label):
     if c32.shape != host.shape or not np.array_equal(c32,
                                                      host.astype(np.float32)):
         bad = np.argwhere(c32 != host.astype(np.float32))[:4].tolist()
-        fail(f"{name} disagrees with the host tables on {label}: "
+        fail(f"{name} disagrees with the plain tables on {label}: "
              f"{int((c32 != host.astype(np.float32)).sum())} entries, first "
              f"{bad}")
     fin = np.isfinite(host)
@@ -421,8 +426,8 @@ def fmt_ms(ms):
 
 
 def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
-    """Phase 2 for mode B: the artifact kernel against the host numpy
-    tables at bench.py's shape and on random blocks (tolerance 0 in
+    """Phase 2 for mode B: the artifact kernel against the plain tables
+    built on the CPU at bench.py's shape and on random blocks (tolerance 0 in
     float32, float64 differences counted); both row kernels against the
     plain rows on the card at that shape, at the warp kernel's edge and
     above the shared-memory width; the LLs against the host f64 path;
@@ -443,8 +448,8 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
     # (a) the artifact tables: bench.py's shape, then the edges
     Lp = prep["seg_codes"].shape[2]
     plan = mbc.artifact_plan(Lp, n_d, P, len(prep["int_log"]), dev)
-    A, n64, n_all, err64, host_s, art_err = artifacts_vs_host(
-        aligner, prep, P, n_d, dev, mbc, "bench.py's shape")
+    A, n64, n_all, err64, host_s, art_err = artifacts_vs_plain(
+        prep, n_d, dev, mbc, "bench.py's shape")
     art_shape = (f"T={prep['tdesc'].shape[0]} P={P} n_d={n_d} L={Lp}")
     e64 = e_all = 0
     e_err = 0.0
@@ -453,15 +458,16 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
             trial, lambda hap, params=None: ModeBAligner(hap, params,
                                                          device=dev))
         inp = al.artifact_inputs(tables, ss, L_max, nd)
-        _g, d64, d_all, d_err, _s, d_err32 = artifacts_vs_host(
-            al, inp, len(ss[0]), nd, dev, mbc, f"random block {trial}")
+        _g, d64, d_all, d_err, _s, d_err32 = artifacts_vs_plain(
+            inp, nd, dev, mbc, f"random block {trial}")
         e64, e_all = e64 + d64, e_all + d_all
         e_err, art_err = max(e_err, d_err), max(art_err, d_err32)
     say("kernels", f"mode_b_artifacts (warp kernel: {plan[0]} segments a "
         f"block, region on chip {plan[1]}) at bench.py's shape "
         f"({art_shape}) and on 12 random blocks (homopolymers and not, "
         "deletions past the block, empty and one-base segments, padding): "
-        "float32 tables == the host numpy tables (tolerance 0); float64 "
+        "float32 tables == the plain tables built on the CPU (tolerance 0); "
+        "float64 "
         f"entries that differ before the cast: {n64} of {n_all} at "
         f"bench.py's shape (max {err64:.3g}), {e64} of {e_all} on the "
         f"random blocks (max {e_err:.3g})")
@@ -591,8 +597,8 @@ def mode_b_kernel_phase(dev, smi, mbc, mbd, dev_ms):
         f"a call; plain version on the card {art_plain_ms:.3f} ms; bound "
         f"{art_bound[0]:.5f} ms ({art_bound[1]}; {art_bytes} bytes, "
         f"{art_ops:.4g} float64 operations at {PEAK_F64_OPS / 1e12:g} "
-        f"TFLOP/s): {art_bound[0] / art_ms:.3%} of it by events; the host "
-        f"numpy tables {host_s:.3f} s (wall)")
+        f"TFLOP/s): {art_bound[0] / art_ms:.3%} of it by events; the plain "
+        f"version on the CPU {host_s:.3f} s (wall)")
     say("kernels", f"mode_b_cols on {smi}: warp kernel "
         f"{ms['mode_b_cols']:.4f} ms (CUDA events), device time a call "
         f"{fmt_ms(cols_prof_ms)} (torch.profiler, {cols_prof[1]:g} launches "
@@ -1291,7 +1297,7 @@ def mesh_phase(tmp, dev, smi, cases, run, body, dr, str_fx, str_single):
                 fail(f"{label}: {k2.__name__} disagrees with K1")
         k1 = ("pairhmm_resident_warp" if arrs[2].shape[1] <= pc.WARP_MAX_WIDTH
               else "pairhmm_resident_block")
-        k2_route = {"BLOCK_MAX_WIDTH": 0, "SMEM_MAX_WIDTH": 0}
+        k2_route = {"BLOCK_MAX_WIDTH": 0}
         for kname, routing in ((k1, {}),
                                ("pairhmm_streamed_cluster", k2_route),
                                ("pairhmm_streamed",
@@ -1481,7 +1487,7 @@ def smoke(tmp, dev, smi):
     if native.get_lib() is None:
         fail("the native host scorer (longtr_tpu_torch/native) did not "
              "build")
-    say("device", f"resident kernel opt-in shared memory "
+    say("device", f"opt-in shared memory a block "
         f"{pc.max_smem_optin(dev)} bytes")
 
     t_phase = time.perf_counter()
@@ -1577,17 +1583,11 @@ def smoke(tmp, dev, smi):
              ("B=4 @40kb", batch_long(rng, 4, 40960), ph.AlignmentParams())]
     # K1's width edges: each register variant's K steps (32*K, 32*K+1),
     # warp -> block, the block variant's 8 -> 16 columns a thread, block ->
-    # smem, and the widest batch the smem variant takes and one more (short
-    # pairs there: the edge is the batch's width)
-    smem_max = max(w for w in range(16384, 24577, 64)
-                   if pc.resident_smem_bytes(w) <= pc.max_smem_optin(dev))
-    while pc.resident_smem_bytes(smem_max + 1) <= pc.max_smem_optin(dev):
-        smem_max += 1
+    # K2's cluster kernel
     edges = [(w, batch_width(rng, 16, w, 16))
              for w in (64, 65, 128, 129, 192, 193, 256, 257, 384, 385, 512,
                        513, 768, 769, 1024, 1025)]
     edges += [(w, batch_width(rng, 8, w, 2)) for w in (4096, 4097, 8192, 8193)]
-    edges += [(w, batch_width(rng, 4, w, 0)) for w in (smem_max, smem_max + 1)]
     # the cluster kernel's C steps: C CTAs of 8192 columns hold C * 8192
     # (run there with C forced, 512 threads of 16 columns a CTA), one more
     # column needs another CTA, and 65537 goes to the workspace kernel
@@ -1597,7 +1597,6 @@ def smoke(tmp, dev, smi):
               for w, arrs in edges]
     variants = {"pairhmm_resident_warp": pc.pairhmm_resident_warp,
                 "pairhmm_resident_block": pc.pairhmm_resident_block,
-                "pairhmm_resident_smem": pc.pairhmm_resident_smem,
                 "pairhmm_streamed_cluster": pc.pairhmm_streamed_cluster,
                 "pairhmm_streamed": pc.pairhmm_streamed}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1605,7 +1604,6 @@ def smoke(tmp, dev, smi):
     def takes(kname, M):
         return {"pairhmm_resident_warp": M <= pc.WARP_MAX_WIDTH,
                 "pairhmm_resident_block": M <= pc.BLOCK_MAX_WIDTH,
-                "pairhmm_resident_smem": pc.resident_fits(M, dev),
                 "pairhmm_streamed_cluster": M <= pc.CLUSTER_MAX_WIDTH,
                 "pairhmm_streamed": True}[kname]
 
@@ -1613,8 +1611,6 @@ def smoke(tmp, dev, smi):
         if M <= pc.BLOCK_MAX_WIDTH:
             return ("pairhmm_resident_warp" if M <= pc.WARP_MAX_WIDTH
                     else "pairhmm_resident_block")
-        if M <= pc.SMEM_MAX_WIDTH and pc.resident_fits(M, dev):
-            return "pairhmm_resident_smem"
         if M <= pc.CLUSTER_MAX_WIDTH:
             return "pairhmm_streamed_cluster"
         return "pairhmm_streamed"
@@ -1747,7 +1743,7 @@ def smoke(tmp, dev, smi):
     # C = 1 beside the block variant (the cost of its barrier), the plain
     # scan (from the case above at 24 and 40 kb; not at 12 kb, where a call
     # takes ~10 s) and the bound.  At 12 kb the kernels are held to the
-    # smem variant, elsewhere to the plain scan.  Last, a small batch at
+    # cluster kernel, elsewhere to the plain scan.  Last, a small batch at
     # the block variant's widest (B=8 x 8 kb: 8 SMs busy in the block
     # variant, 64 in the cluster kernel), held to the block variant.
     timing = {}
@@ -1850,13 +1846,36 @@ def smoke(tmp, dev, smi):
             fail("native scorer unavailable")
         return out
 
+    @contextlib.contextmanager
+    def plain_mode_b():
+        """Mode B on the plain versions for the duration: the artifact
+        tables built on CPU copies of their inputs and handed back on the
+        card, the rows by the plain torch version on the card.  The names
+        patched are the ones the pipeline calls."""
+        from longtr_tpu_torch.ops.mode_b_artifacts import \
+            mode_b_artifacts_plain
+        from longtr_tpu_torch.pipeline import mode_b as pmb
+
+        def artifacts(*args, n_d, dtype=torch.float32):
+            return mode_b_artifacts_plain(*[a.cpu() for a in args], n_d=n_d,
+                                          dtype=dtype).to(args[0].device)
+
+        def cols(*args, n_d, **_kw):
+            return mbd.mode_b_cols_plain(*args, n_d=n_d)
+
+        saved = pmb.mode_b_artifacts, mbc.mode_b_cols
+        pmb.mode_b_artifacts, mbc.mode_b_cols = artifacts, cols
+        try:
+            yield
+        finally:
+            pmb.mode_b_artifacts, mbc.mode_b_cols = saved
+
     def body(path):
         with gzip.open(path, "rt") as fh:
             return [ln for ln in fh.read().splitlines()
                     if not ln.startswith("##command")]
 
-    def run(tag, fx, extra, scorer, out_dir, mode_b_reference=False,
-            mesh=None):
+    def run(tag, fx, extra, scorer, out_dir, mesh=None):
         name = tag.replace(" ", "_").replace("+", "_")
         out = os.path.join(out_dir, f"{name}.vcf.gz")
         metrics = os.path.join(out_dir, f"{name}.json")
@@ -1866,8 +1885,7 @@ def smoke(tmp, dev, smi):
         poa._memo.clear()        # no assembly reuse across runs
         torch.cuda.synchronize()
         t = time.perf_counter()
-        rc = cli.main(argv, device=dev, pair_scorer=scorer,
-                      mode_b_reference=mode_b_reference, mesh=mesh)
+        rc = cli.main(argv, device=dev, pair_scorer=scorer, mesh=mesh)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         if rc != 0:
@@ -1890,22 +1908,21 @@ def smoke(tmp, dev, smi):
     vntr_fx = catalog("vntr_in", 24, vntr=True)
     # (tag, catalog, options, environment, routing): the card's runs of
     # each are compared with a reference run of the same options, its pairs
-    # scored by the native host scorer and its mode B on the reference path
-    # (the host's numpy artifact tables, the plain rows on the card).  The
-    # device-posterior run's reference is the default host-f64 posterior.
-    # The VNTR catalog's batches are 1-2 kb and 2-4 kb wide, both K1's
-    # block variant; its second run lowers the thresholds (`routing`:
-    # (module, attribute, value)) so that the 1-2 kb batch takes the smem
-    # variant and the 2-4 kb batch the workspace kernel, its third so that
-    # both take K2's cluster kernel.  The second mode-B dryrun sends its
+    # scored by the native host scorer and its mode B on the plain versions
+    # (plain_mode_b).  The device-posterior run's reference is the default
+    # host-f64 posterior.  The VNTR catalog's batches are 1-2 kb and 2-4 kb
+    # wide, both K1's block variant; its second run lowers the thresholds
+    # (`routing`: (module, attribute, value)) so that the 1-2 kb batch takes
+    # K2's cluster kernel and the 2-4 kb batch the workspace kernel, its third
+    # so that both take the cluster kernel.  The second mode-B dryrun sends its
     # rows to the block kernel.
     catalogs = [("STR", str_fx, [], {}, []),
                 ("VNTR", vntr_fx, ["--max-tr-len", "10000"], {}, []),
-                ("VNTR smem+streamed", vntr_fx, ["--max-tr-len", "10000"], {},
-                 [(pc, "BLOCK_MAX_WIDTH", 1024), (pc, "SMEM_MAX_WIDTH", 2048),
+                ("VNTR streamed", vntr_fx, ["--max-tr-len", "10000"], {},
+                 [(pc, "BLOCK_MAX_WIDTH", 1024),
                   (pc, "CLUSTER_MAX_WIDTH", 2048)]),
                 ("VNTR cluster", vntr_fx, ["--max-tr-len", "10000"], {},
-                 [(pc, "BLOCK_MAX_WIDTH", 1024), (pc, "SMEM_MAX_WIDTH", 0)]),
+                 [(pc, "BLOCK_MAX_WIDTH", 1024)]),
                 ("STR mode B", str_fx, ["--stutter-align-len", "25"], {}, []),
                 ("dryrun snp-vcf", dry, ["--snp-vcf", dr["snp_vcf"]], {}, []),
                 ("dryrun ref-vcf", dry, ["--ref-vcf", dr["panel"]], {}, []),
@@ -1926,8 +1943,9 @@ def smoke(tmp, dev, smi):
         if routing:     # the same run as the one before it, rerouted
             refs[tag] = refs[prev]
             continue
-        refs[tag] = run(tag + " reference", fx, extra, native_scorer, tmp,
-                        mode_b_reference=True)
+        with plain_mode_b():
+            refs[tag] = run(tag + " reference", fx, extra, native_scorer,
+                            tmp)
         prev = tag
     shapes = []
     real_mode_b = mbc.mode_b_cols
@@ -1987,8 +2005,8 @@ def smoke(tmp, dev, smi):
             f"{scored}; mode-B elements scored {mode_b_scored} (host_f64 = "
             "configs outside the row tables' envelope)")
         need = {"VNTR": ["pairhmm_resident_block"],
-                "VNTR smem+streamed": ["pairhmm_resident_smem",
-                                       "pairhmm_streamed"],
+                "VNTR streamed": ["pairhmm_streamed_cluster",
+                                  "pairhmm_streamed"],
                 "VNTR cluster": ["pairhmm_streamed_cluster"],
                 "STR mode B": ["pairhmm_resident_warp", "mode_b_artifacts",
                                "mode_b_cols"],
@@ -2019,8 +2037,8 @@ def smoke(tmp, dev, smi):
             "summed over the build threads): card (tables and rows on the "
             f"card) Haplotype build {st.get('Haplotype build', 0.0):.3f}, "
             f"Mode B dispatch {st.get('Mode B dispatch', 0.0):.3f}; reference "
-            "(host numpy tables, plain rows on the card) Haplotype build "
-            f"{rst.get('Haplotype build', 0.0):.3f}, Mode B dispatch "
+            "(plain tables on the CPU, plain rows on the card) Haplotype "
+            f"build {rst.get('Haplotype build', 0.0):.3f}, Mode B dispatch "
             f"{rst.get('Mode B dispatch', 0.0):.3f}")
 
     j3_window = j3_window_phase(smi, run, body, str_fx, results["STR"][0],
@@ -2038,15 +2056,13 @@ def smoke(tmp, dev, smi):
     lines = kernel_lines()
     # each kernel's time at its main-path shape, and its launches in the
     # main path's run that takes it: the STR run for the warp variant, the
-    # VNTR runs for the block and smem variants and K2's two kernels, the
-    # mode-B STR run for mode_b_cols
+    # VNTR runs for the block variant and K2's two kernels, the mode-B STR
+    # run for mode_b_cols
     main = {"pairhmm_resident_warp": (cases[0][0], "STR", "_kernel"),
             "pairhmm_resident_block": (cases[1][0], "VNTR", "_kernel"),
-            "pairhmm_resident_smem": (cases[1][0], "VNTR smem+streamed",
-                                      "_kernel"),
             "pairhmm_streamed_cluster": ("B=8 @24kb", "VNTR cluster",
                                          "_kernel_chunked"),
-            "pairhmm_streamed": (cases[1][0], "VNTR smem+streamed",
+            "pairhmm_streamed": (cases[1][0], "VNTR streamed",
                                  "_kernel_chunked")}
     kernels = [{"name": k, "route": "cuda", "source": src,
                 "replaces": lines[pallas],

@@ -269,19 +269,16 @@ def config_from_args(args) -> Config:
 
 
 
-def main(argv=None, device=None, pair_scorer=None, mode_b_reference=False,
-         mesh=None):
+def main(argv=None, device=None, pair_scorer=None, mesh=None):
     """Run ``longtr``.  ``device`` (default: ``select_device(None)``, the
     first card unless ``LONGTR_TORCH_DEVICE`` names another device), ``mesh``
     (a :class:`~longtr_tpu_torch.parallel.mesh.Mesh`; default: every card
     when neither ``device`` nor ``LONGTR_TORCH_DEVICE`` names a device and
-    there is more than one card), ``pair_scorer`` (a
-    replacement for the pair-HMM) and ``mode_b_reference`` (mode B's
-    reference path: host numpy artifact tables and the plain rows), used by
-    chip_smoke.py and the tests, are for programs that call this
-    in-process; they are not options."""
+    there is more than one card) and ``pair_scorer`` (a replacement for
+    the pair-HMM), used by chip_smoke.py and the tests, are for programs
+    that call this in-process; they are not options."""
     try:
-        return _main(argv, device, pair_scorer, mode_b_reference, mesh)
+        return _main(argv, device, pair_scorer, mesh)
     except (OSError, ValueError, EOFError) as e:
         # printErrorAndDie analog (error.h:6): clean message, nonzero exit.
         # Set LONGTR_TRACEBACK=1 to see the full traceback when debugging.
@@ -476,8 +473,7 @@ def _run_distributed(argv, args, device):
         dist.destroy_process_group()
 
 
-def _main(argv=None, device=None, pair_scorer=None, mode_b_reference=False,
-          mesh=None):
+def _main(argv=None, device=None, pair_scorer=None, mesh=None):
     timer = ProcessTimer()
     with timer.span("Pass", rest="Outside stages"):
         if argv is None:
@@ -584,8 +580,7 @@ def _main(argv=None, device=None, pair_scorer=None, mode_b_reference=False,
             from longtr_tpu_torch.pipeline.processor import GenotyperPipeline
             pipeline = GenotyperPipeline(
                 cfg, use_bam_rgs, full_logger, sel_logger, device=device,
-                pair_scorer=pair_scorer, mode_b_reference=mode_b_reference,
-                mesh=mesh, timer=timer)
+                pair_scorer=pair_scorer, mesh=mesh, timer=timer)
             if log_fh is not sys.stderr:
                 pipeline.log_flush = log_fh.flush
 

@@ -2,7 +2,8 @@
 //
 // The JAX package builds A on the host in float64 numpy
 // (longtr_tpu/pipeline/mode_b.py::_artifact_table_batch over
-// StutterAligner.load_read_batch, align_all_batch and fast_lse_cols) and
+// longtr_tpu's StutterAligner.load_read_batch, align_all_batch and
+// fast_lse_cols) and
 // copies it to the device with every batch; the plain version is
 // longtr_tpu_torch/ops/mode_b_artifacts.py::mode_b_artifacts_plain.  For
 // one table t (side, repeat block, allele option) and one reversed read
@@ -31,11 +32,11 @@
 // segments that the block's valid columns fill its threads).  It
 //   1. stages each segment's per-position base byte and its lw/lc (the
 //      float64 log-probabilities of its quality byte) in shared memory;
-//   2. sums load_read_batch's prefixes (match, one per deletion multiple,
-//      one per insertion multiple) for every valid offset of its segments,
-//      one offset a thread, from the staged bytes, into rows of the same
-//      region ([row][offset]: a lane's neighbour reads the next double),
-//      the match prefix four positions a step so that a step's loads
+//   2. sums longtr_tpu's load_read_batch prefixes (match, one per deletion
+//      multiple, one per insertion multiple) for every valid offset of its
+//      segments, one offset a thread, from the staged bytes, into rows of
+//      the same region ([row][offset]: a lane's neighbour reads the next
+//      double), the match prefix four positions a step so that a step's loads
 //      overlap; then its warps store the -inf of the columns past each
 //      segment's end, which take no lane below;
 //   3. walks the descent for every (D, valid column) of its segments,
@@ -87,7 +88,7 @@ struct Staged {
   __device__ __forceinline__ double correct(int r) const { return lc[r]; }
 };
 
-// load_read_batch's prefixes, row-major: row k holds every offset.
+// longtr_tpu's load_read_batch prefixes, row-major: row k holds every offset.
 struct PreByRow {
   const double* match;
   const double* dels;
@@ -102,11 +103,11 @@ struct PreByRow {
   }
 };
 
-// load_read_batch for offset o of a segment of length L: the match prefix
-// over the block, its deletion snapshots and the insertion prefixes, summed
-// in j order.  set_del(k, v) and set_ins(k, v) store snapshot k.  It
-// counts j modulo the period instead of dividing and unrolls the match
-// prefix by four.
+// longtr_tpu's load_read_batch for offset o of a segment of length L: the
+// match prefix over the block, its deletion snapshots and the insertion
+// prefixes, summed in j order.  set_del(k, v) and set_ins(k, v) store
+// snapshot k.  It counts j modulo the period instead of dividing and
+// unrolls the match prefix by four.
 template <class S, class SetDel, class SetIns>
 __device__ __forceinline__ double prefixes(
     const int o, const int L, const int blk_len, const int period,
@@ -145,7 +146,8 @@ __device__ __forceinline__ double prefixes(
   return run;
 }
 
-// The entries of align_all_batch's descent for one column, in entry order:
+// The entries of longtr_tpu's align_all_batch descent for one column, in
+// entry order:
 // lp, one a step while i > lim, and the tail at the exit (the scalar
 // StutterAligner._align_insertion / _align_deletion walk).  The steps
 // depend on (table, D) alone; lp, lim and the positions read on the
@@ -384,7 +386,7 @@ mode_b_artifacts_warp_kernel(const uint8_t* __restrict__ seg_codes,
   __syncthreads();
 
   const int V = s_start[ng];
-  // 2. load_read_batch: one valid offset a thread
+  // 2. longtr_tpu's load_read_batch: one valid offset a thread
   for (int v = tid; v < V; v += ART_THREADS) {
     int g = 0;
     while (v >= s_start[g + 1]) g++;
@@ -411,7 +413,8 @@ mode_b_artifacts_warp_kernel(const uint8_t* __restrict__ seg_codes,
   __syncthreads();
   if (V == 0) return;
 
-  // 3. align_all_batch + fast_lse_cols, D-major over the valid columns:
+  // 3. longtr_tpu's align_all_batch + fast_lse_cols, D-major over the
+  // valid columns:
   // item (d, v) = d * V + v, a thread's next item ART_THREADS further
   int d = tid / V, v = tid - d * V;
   for (; d < ds.n_dl; v += ART_THREADS) {

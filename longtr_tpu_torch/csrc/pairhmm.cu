@@ -1,7 +1,8 @@
 // Mode-A pair-HMM kernels for NVIDIA Hopper (sm_90a).
 //
 // Replace the two Pallas TPU kernels of longtr_tpu/ops/pairhmm_pallas.py:
-//   pairhmm_resident  <- _kernel          (launched by _pallas_call)
+//   pairhmm_resident_warp, pairhmm_resident_block
+//                     <- _kernel          (launched by _pallas_call)
 //   pairhmm_streamed_cluster, pairhmm_streamed
 //                     <- _kernel_chunked  (launched by _pallas_call_chunked)
 //
@@ -31,10 +32,10 @@
 // register variants are bound by instruction issue of that row loop:
 // fewer instructions, as fmaxf's one FMNMX for a compare and select, made
 // them faster, while fewer registers (the block variant at widths the
-// warp variant takes) did not.  The smem and streamed variants wait on
-// their barriers and shared or device memory.
+// warp variant takes) did not.  The workspace kernel waits on its barriers
+// and device memory.
 //
-// pairhmm_resident (K1) comes in three variants, chosen by read width:
+// K1 comes in two variants, chosen by read width:
 //   warp   (width <= 32*32): one warp a pair, several pairs a block.  Lane
 //          l owns the K columns [l*K, l*K+K) and keeps their M, I, P of the
 //          previous row and their read codes in registers; the left
@@ -46,13 +47,10 @@
 //          max into slots double-buffered by row parity; after the barrier
 //          a warp scans the partials with one shuffle scan and rebuilds its
 //          left neighbour's P itself, so nothing else crosses warps.
-//   smem   (wider, while M, I, P fit the block's shared memory, ~17.8k
-//          columns): the previous row in shared memory, each thread a
-//          contiguous run of j, two barriers a row.
 // Pass 1 of a row forms M and I (which need only the previous row) and the
 // running max of the D terms; pass 2, after the scan, forms D, the band
-// terms and the new P (the smem variant also the corner term; the register
-// variants rebuild the score after the last row instead).
+// terms and the new P (the workspace kernel also the corner term; the
+// register variants rebuild the score after the last row instead).
 //
 // K2 comes in two kernels:
 //   cluster   (width <= 8 CTAs * 8192 columns on portable clusters): one
@@ -475,119 +473,6 @@ pairhmm_resident_block_kernel(const uint8_t* __restrict__ hap,
   if (owner) out[b] = failed ? BAND_FAIL : out_v;
 }
 
-// Resident kernel: the previous row's M, I and fused predecessor P, and
-// the read codes, live in dynamic shared memory.  Thread t owns the
-// contiguous columns [j0, j1).  A row is two passes over them: pass 1
-// forms M and the local running max of the D terms; after the block scan,
-// pass 2 recomputes M (same ops, same bits), forms I, D, the band and
-// corner terms and writes the new row.  Pass 1 reads the one column a
-// neighbour owns (P[j0-1]) before the scan's barrier, so pass 2 may
-// overwrite freely.
-__global__ void __launch_bounds__(1024)
-pairhmm_resident_kernel(const uint8_t* __restrict__ hap,
-                        const uint8_t* __restrict__ read,
-                        const int32_t* __restrict__ hap_len,
-                        const int32_t* __restrict__ read_len,
-                        const int32_t* __restrict__ full_len,
-                        const float* __restrict__ trans, int N, int Mdim,
-                        float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
-  const int n = hap_len[b];
-  const int m_len = read_len[b];
-  float gate_score;
-  if (gated(n, m_len, full_len[b], &gate_score)) {
-    if (tid == 0) out[b] = gate_score;
-    return;
-  }
-  const Trans t = load_trans(trans);
-  const uint8_t* hp = hap + (size_t)b * N;
-  const uint8_t* rd = read + (size_t)b * Mdim;
-  const int m = min(max(m_len, 0), Mdim);
-  const int rows = min(max(n, 0), N);
-  const int nm = n - m_len;
-
-  float* sM = smem;
-  float* sI = sM + Mdim;
-  float* sP = sI + Mdim;
-  float* sh = sP + Mdim;
-  uint8_t* sR = reinterpret_cast<uint8_t*>(sh + SCAN_SLOTS);
-
-  const int K = (m + T - 1) / T;
-  const int j0 = min(tid * K, m);
-  const int j1 = min(j0 + K, m);
-  const uint8_t r0 = rd[0];
-  const uint8_t c0r = (m > 1) ? rd[1] : rd[0];
-  const float col0_emit = hp[0] == c0r ? MA : MI;
-
-  float out_v = NEG;
-  for (int j = j0; j < j1; j++) {
-    float M0, D0, P0;
-    row0_cell(j, hp, N, r0, t, M0, D0, P0);
-    sM[j] = M0;
-    sI[j] = NEG;
-    sP[j] = P0;
-    sR[j] = rd[j];
-    if (n == 1 && j == m - 1) out_v = mx(mx(M0, NEG), D0);
-  }
-  __syncthreads();
-
-  // Band row-max of the previous row, reduced in the next row's scan;
-  // +inf marks "no row to check yet".
-  float rb_prev = INFINITY;
-  bool failed = false;
-  for (int i = 1; i < rows; i++) {
-    const uint8_t h = hp[i];
-    float run = -INFINITY;
-    for (int j = j0; j < j1; j++) {
-      const float Mn = j == 0 ? (sI[0] + t.i2m) + col0_emit
-                              : (h == sR[j] ? MA : MI) + sP[j - 1];
-      run = mx(run, c_term(Mn, j, t));
-    }
-    const float p_left = (j0 >= 1 && j0 < j1) ? sP[j0 - 1] : 0.0f;
-    float excl, tot_a, tot_b;
-    block_scan(run, rb_prev, sh, excl, tot_a, tot_b);
-    if (tot_b < BAND_THRESH) {
-      failed = true;
-      break;
-    }
-    float runp = excl;
-    float p_prev = p_left;
-    float rb = NEG;
-    for (int j = j0; j < j1; j++) {
-      const float p_old = sP[j];
-      float Mn, In;
-      if (j == 0) {
-        Mn = (sI[0] + t.i2m) + col0_emit;
-        In = (MA + t.m2i) + (float)(i - 1) * t.i2i;
-      } else {
-        Mn = (h == sR[j] ? MA : MI) + p_prev;
-        In = MA + mx(sM[j] + t.m2i, sI[j] + t.i2i);
-      }
-      const float Dn = j == 0 ? NEG : (float)j * t.d2d + runp;
-      runp = mx(runp, c_term(Mn, j, t));
-      const float best = mx(mx(Mn, In), Dn);
-      if (j >= 1) rb = mx(rb, band_cand(best, nm, i, j, t));
-      if (i == n - 1 && j == m - 1) out_v = best;
-      sM[j] = Mn;
-      sI[j] = In;
-      sP[j] = mx(mx(Mn + t.m2m, Dn + t.d2m), In + t.i2m);
-      p_prev = p_old;
-    }
-    rb_prev = rb;
-    __syncthreads();
-  }
-  if (!failed && rows >= 2) {
-    float e, ta, tb;
-    block_scan(-INFINITY, rb_prev, sh, e, ta, tb);
-    failed = tb < BAND_THRESH;
-  }
-  const bool owner = m >= 1 ? (j0 <= m - 1 && m - 1 < j1) : tid == 0;
-  if (owner) out[b] = failed ? BAND_FAIL : out_v;
-}
-
 // Streamed kernel: the rows live in a device-memory workspace of
 // 3 * Mdim floats per pair (M, I, P), and the read axis is walked in
 // tiles of blockDim.x columns, one per thread, so every load and store is
@@ -915,12 +800,6 @@ int launch_warp(const uint8_t* hap, const uint8_t* read,
 
 extern "C" {
 
-// Dynamic shared memory the resident kernel needs for a read width Mdim.
-long pairhmm_resident_smem_bytes(int Mdim) {
-  const long bytes = (3L * Mdim + SCAN_SLOTS) * (long)sizeof(float) + Mdim;
-  return (bytes + 15) / 16 * 16;
-}
-
 // The most dynamic shared memory one block may opt in to on `device`.
 int pairhmm_max_smem_optin(int device, int* bytes) {
   return (int)cudaDeviceGetAttribute(
@@ -971,23 +850,6 @@ int pairhmm_resident_block(const uint8_t* hap, const uint8_t* read,
   return (int)cudaGetLastError();
 }
 
-// Shared-memory variant.
-int pairhmm_resident(const uint8_t* hap, const uint8_t* read,
-                     const int32_t* hap_len, const int32_t* read_len,
-                     const int32_t* full_len, const float* trans, int B,
-                     int N, int Mdim, int threads, float* out, void* stream) {
-  const long smem = pairhmm_resident_smem_bytes(Mdim);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pairhmm_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  pairhmm_resident_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      hap, read, hap_len, read_len, full_len, trans, N, Mdim, out);
-  return (int)cudaGetLastError();
-}
-
 // Cluster kernel of K2: C CTAs a pair (1 <= C <= 8, the portable cluster
 // size), 16 columns a thread, as many whole warps a CTA as ceil(Mdim / C)
 // columns need, at most 512.  Refuses a shape it cannot launch, and a
@@ -1003,7 +865,8 @@ int pairhmm_streamed_cluster(const uint8_t* hap, const uint8_t* read,
                         Mdim, C, out, stream);
 }
 
-// As pairhmm_resident, plus ws: a (B, 3, Mdim) float32 device workspace.
+// Workspace kernel of K2: threads a block as given (a multiple of 32, at
+// most 1024), plus ws: a (B, 3, Mdim) float32 device workspace.
 int pairhmm_streamed(const uint8_t* hap, const uint8_t* read,
                      const int32_t* hap_len, const int32_t* read_len,
                      const int32_t* full_len, const float* trans, int B,

@@ -82,12 +82,8 @@ def _build(out_path: str) -> None:
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pairhmm_resident_smem_bytes.argtypes = [i]
-    lib.pairhmm_resident_smem_bytes.restype = ctypes.c_long
     lib.pairhmm_max_smem_optin.argtypes = [i, ctypes.POINTER(i)]
     lib.pairhmm_max_smem_optin.restype = i
-    lib.pairhmm_resident.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
-    lib.pairhmm_resident.restype = i
     for name in ("pairhmm_resident_warp", "pairhmm_resident_block"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, i, i, i, p, p]

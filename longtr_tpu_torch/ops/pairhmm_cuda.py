@@ -2,13 +2,11 @@
 
 Port of :mod:`longtr_tpu.ops.pairhmm_pallas`:
 
-* K1 replaces ``_kernel`` (``_pallas_call``) with three variants:
+* K1 replaces ``_kernel`` (``_pallas_call``) with two variants:
   :func:`pairhmm_resident_warp` (one warp a pair, the rows in registers;
-  up to ``WARP_MAX_WIDTH`` columns), :func:`pairhmm_resident_block` (one
-  block of warps a pair, the rows in registers; up to
-  ``BLOCK_MAX_WIDTH``) and :func:`pairhmm_resident_smem` (one block a
-  pair, the rows in shared memory; up to about 17.8k columns on an H100).
-  :func:`pairhmm_resident` picks the warp or the block variant by width.
+  up to ``WARP_MAX_WIDTH`` columns) and :func:`pairhmm_resident_block`
+  (one block of warps a pair, the rows in registers; up to
+  ``BLOCK_MAX_WIDTH``).  :func:`pairhmm_resident` picks one by width.
 * K2 replaces ``_kernel_chunked`` (``_pallas_call_chunked``) with two
   kernels: :func:`pairhmm_streamed_cluster` (one thread-block cluster a
   pair, the rows in the registers of its CTAs; up to
@@ -17,10 +15,9 @@ Port of :mod:`longtr_tpu.ops.pairhmm_pallas`:
   no pair is sent to the host for being long).
 
 :func:`pairhmm_batch` routes a batch by its read width M: warp up to
-``WARP_MAX_WIDTH``, block up to ``BLOCK_MAX_WIDTH``, smem up to
-``SMEM_MAX_WIDTH`` (where it fits), cluster up to ``CLUSTER_MAX_WIDTH``,
-the workspace kernel beyond.  The thresholds are module attributes, so
-that a test can send a width to any kernel.
+``WARP_MAX_WIDTH``, block up to ``BLOCK_MAX_WIDTH``, cluster up to
+``CLUSTER_MAX_WIDTH``, the workspace kernel beyond.  The thresholds are module
+attributes, so that a test can send a width to any kernel.
 
 Each wrapper validates its tensors, allocates the output (and workspace)
 with ``torch.empty`` on the inputs' device, launches on the current CUDA
@@ -40,8 +37,7 @@ from longtr_tpu_torch.ops.pairhmm import pairhmm_scan
 
 # Kernel launches per variant; chip_smoke.py zeroes and reads these.
 launches = {"pairhmm_resident_warp": 0, "pairhmm_resident_block": 0,
-            "pairhmm_resident_smem": 0, "pairhmm_streamed_cluster": 0,
-            "pairhmm_streamed": 0}
+            "pairhmm_streamed_cluster": 0, "pairhmm_streamed": 0}
 
 # The widest reads the register variants take (csrc/pairhmm.cu: 32 lanes
 # of at most 32 columns; 512 threads of at most 16), whose C entries refuse
@@ -49,11 +45,6 @@ launches = {"pairhmm_resident_warp": 0, "pairhmm_resident_block": 0,
 # width to the next variant.
 WARP_MAX_WIDTH = 32 * 32
 BLOCK_MAX_WIDTH = 512 * 16
-
-# The widest reads the router gives the smem variant: none, since K2's
-# cluster kernel was faster wherever both were timed on an H100 (8 and 12
-# kb; PERF.md).  A test raises it to send a width there.
-SMEM_MAX_WIDTH = 0
 
 # The cluster kernel: a CTA holds at most 512 threads of 16 columns, a
 # portable cluster 8 CTAs.  MIN_CTA_COLUMNS is the narrowest CTA that
@@ -72,12 +63,6 @@ STREAMED_THREADS = 512
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-
-
-def _smem_threads(Mdim: int) -> int:
-    """About four columns per thread, in whole warps, at most 1024."""
-    per = -(-Mdim // 4)
-    return min(1024, max(32, -(-per // 32) * 32))
 
 
 def _check(hap, hap_len, read, read_len, full_len, trans, threads):
@@ -127,10 +112,6 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def resident_smem_bytes(Mdim: int) -> int:
-    return int(_build.load_library().pairhmm_resident_smem_bytes(Mdim))
-
-
 def max_smem_optin(device) -> int:
     dev = torch.device(device)
     val = ctypes.c_int(0)
@@ -140,16 +121,11 @@ def max_smem_optin(device) -> int:
     return val.value
 
 
-def resident_fits(Mdim: int, device) -> bool:
-    """Whether a read width fits the resident kernel's shared memory."""
-    return resident_smem_bytes(Mdim) <= max_smem_optin(device)
-
-
 def _launch(name, fn, hap, hap_len, read, read_len, full_len, trans,
-            extra=(), threads=32):
+            extra=()):
     """Check the batch, launch ``lib.<fn>`` on it (``extra``: the kernel's
     shape arguments after the widths), count the launch."""
-    B, N, M = _check(hap, hap_len, read, read_len, full_len, trans, threads)
+    B, N, M = _check(hap, hap_len, read, read_len, full_len, trans, 32)
     out = torch.empty(B, dtype=torch.float32, device=hap.device)
     if B == 0:
         return out
@@ -185,22 +161,6 @@ def pairhmm_resident_block(hap, hap_len, read, read_len, full_len, trans):
                          f"variant's {BLOCK_MAX_WIDTH} columns")
     return _launch("pairhmm_resident_block", "pairhmm_resident_block", hap,
                    hap_len, read, read_len, full_len, trans)
-
-
-def pairhmm_resident_smem(hap, hap_len, read, read_len, full_len, trans,
-                          threads: int | None = None):
-    """K1, shared-memory variant: one block a pair, the rows in shared
-    memory, any width that fits it."""
-    if hap.device.type == "cpu":
-        return pairhmm_scan(hap, hap_len, read, read_len, full_len, trans)
-    if hap.device.type == "cuda" and not resident_fits(read.shape[1],
-                                                       hap.device):
-        raise ValueError(f"read width {read.shape[1]} does not fit the "
-                         "resident kernel's shared memory; use "
-                         "pairhmm_streamed")
-    threads = threads or _smem_threads(read.shape[1])
-    return _launch("pairhmm_resident_smem", "pairhmm_resident", hap, hap_len,
-                   read, read_len, full_len, trans, (threads,), threads)
 
 
 def pairhmm_resident(hap, hap_len, read, read_len, full_len, trans):
@@ -277,9 +237,8 @@ def pairhmm_streamed(hap, hap_len, read, read_len, full_len, trans,
 
 def pairhmm_batch(hap, hap_len, read, read_len, full_len, trans):
     """Route a batch by its read width M: K1's warp or block variant
-    (:func:`pairhmm_resident`) up to ``BLOCK_MAX_WIDTH``, its smem variant up to
-    ``SMEM_MAX_WIDTH`` where the rows fit, the cluster kernel up to
-    ``CLUSTER_MAX_WIDTH``, the workspace kernel beyond.  CPU tensors take
+    (:func:`pairhmm_resident`) up to ``BLOCK_MAX_WIDTH``, the cluster kernel
+    up to ``CLUSTER_MAX_WIDTH``, the workspace kernel beyond.  CPU tensors take
     the plain scan."""
     if hap.device.type == "cpu":
         return pairhmm_scan(hap, hap_len, read, read_len, full_len, trans)
@@ -287,8 +246,6 @@ def pairhmm_batch(hap, hap_len, read, read_len, full_len, trans):
     args = (hap, hap_len, read, read_len, full_len, trans)
     if M <= BLOCK_MAX_WIDTH:
         return pairhmm_resident(*args)
-    if M <= SMEM_MAX_WIDTH and resident_fits(M, hap.device):
-        return pairhmm_resident_smem(*args)
     if M <= CLUSTER_MAX_WIDTH:
         return pairhmm_streamed_cluster(*args)
     return pairhmm_streamed(*args)

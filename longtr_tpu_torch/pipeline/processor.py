@@ -76,24 +76,20 @@ class GenotyperPipeline:
     def __init__(self, config: Config, use_bam_rgs: bool = True,
                  full_logger=None, selective_logger=None,
                  device: torch.device | None = None,
-                 pair_scorer=None, mode_b_reference=False, mesh=None,
+                 pair_scorer=None, mesh=None,
                  timer: ProcessTimer | None = None):
         """``pair_scorer(hap, hap_lens, read, read_lens, full_lens, params)``
         scores padded pair batches; by default
-        :func:`~longtr_tpu_torch.ops.pairhmm.pairhmm_batch_auto` on
-        ``device`` (default: :func:`~longtr_tpu_torch.device.select_device`'s),
-        or over ``mesh`` when it has more than one shard.
-        ``mode_b_reference`` gives mode B the reference path: artifact
-        tables built on the host in numpy, the plain rows on ``device``.  A
-        mesh also takes the EM stutter training and the window
-        posteriors.  ``timer`` (default: a new one) receives the stage
-        spans."""
+        :func:`~longtr_tpu_torch.ops.pairhmm.pairhmm_batch_auto` on ``device``
+        (default: :func:`~longtr_tpu_torch.device.select_device`'s), or over
+        ``mesh`` when it has more than one shard.  A mesh also takes the EM
+        stutter training and the window posteriors.  ``timer`` (default: a new
+        one) receives the stage spans."""
         self.config = config
         self.device = select_device(device)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.scorer = pair_scorer or functools.partial(
             pairhmm_batch_auto, device=self.device, mesh=self.mesh)
-        self.mode_b_reference = mode_b_reference
         self.use_bam_rgs = use_bam_rgs
         self.full_log = full_logger or (lambda *a: None)
         self.sel_log = selective_logger or (lambda *a: None)
@@ -370,7 +366,7 @@ class GenotyperPipeline:
                 indel_flank_len=cfg.indel_flank_len,
                 switch_old_align_len=cfg.switch_old_align_len,
                 alignment_params=cfg.alignment_params, scorer=self.scorer,
-                device=self.device, mode_b_reference=self.mode_b_reference)
+                device=self.device)
             ok, pairs = gt.genotype_prepare(cfg.max_total_haplotypes)
             gt.chrom_seq = chrom_seq   # shared ref, used by the viz writer
             return gt, pairs, ok, logbuf

@@ -30,8 +30,6 @@ The haplotype/read trimming geometry for alignment reproduces
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
@@ -489,12 +487,10 @@ class SeqStutterGenotyper:
                  n_p1s, n_p2s, sample_names, chrom_seq: str, stutter_models,
                  ref_vcf=None, logger=None, skip_assembly: bool = True,
                  indel_flank_len: int = 5, switch_old_align_len: int = 0,
-                 alignment_params=None, scorer=None, device=None,
-                 mode_b_reference=False):
+                 alignment_params=None, scorer=None, device=None):
         self.region_group = region_group
         self.scorer = scorer
         self.device = device              # where mode B runs its device work
-        self.mode_b_reference = mode_b_reference
         self.haploid = haploid
         self.alns = alns
         self.sample_names = list(sample_names)
@@ -598,9 +594,8 @@ class SeqStutterGenotyper:
         building) runs now — safe inside a locus build worker — and the
         device row DP + marginalization is stored as
         ``self._mode_b_finish`` for the scheduler to call on the main
-        thread; returns None in that case.  ``--ref-fidelity``,
-        ``LONGTR_MODE_B_HOST=1`` and configs outside the row tables'
-        envelope score on the host in f64 instead.
+        thread; returns None in that case.  ``--ref-fidelity`` and configs
+        outside the row tables' envelope score on the host in f64 instead.
 
         The host phase is the span ``Mode B prepare``; ``mode_b_counts``
         adds the locus, its pooled reads, the row DP's elements and the
@@ -615,8 +610,7 @@ class SeqStutterGenotyper:
         scores = np.zeros((len(pools), A))
         with span("Mode B prepare"):
             aligner = ModeBAligner(self.haplotype, self.alignment_params,
-                                   device=self.device,
-                                   reference=self.mode_b_reference)
+                                   device=self.device)
             hap_start = self.haplotype.blocks[0].start
             hap_end = self.haplotype.blocks[-1].end
             self.pool_seed_positions = np.full(len(pools), -1, dtype=np.int64)
@@ -627,8 +621,7 @@ class SeqStutterGenotyper:
             valid = np.flatnonzero(self.pool_seed_positions >= 0)
             self.seed_positions = self.pool_seed_positions[self.pool_index]
             prep = None
-            if len(valid) and not mathops.ref_fidelity() \
-                    and os.environ.get("LONGTR_MODE_B_HOST", "") != "1":
+            if len(valid) and not mathops.ref_fidelity():
                 # One device call for all (read, config) pairs; the f64 host
                 # path remains the reference-fidelity / envelope scorer.
                 prep = aligner.score_reads_batch_prepare(

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
 the pair-HMM kernels against the plain scan and the native scorer, the
-mode-B kernels against the host tables and the plain torch rows, and the
+mode-B kernels against the plain torch tables and rows, and the
 window posteriors and EM train kernels against the plain torch
 posteriors and train loop.
 
@@ -158,7 +158,6 @@ def k1_variants(width):
         out["pairhmm_resident_warp"] = pc.pairhmm_resident_warp
     if width <= pc.BLOCK_MAX_WIDTH:
         out["pairhmm_resident_block"] = pc.pairhmm_resident_block
-    out["pairhmm_resident_smem"] = pc.pairhmm_resident_smem
     return out
 
 
@@ -178,10 +177,9 @@ def _width_batch(width, B=8, seed=0, full=2):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_cuda_kernels_bit_identical(cuda_device, case):
-    """Every K1 variant that takes the width, the smem variant and the
-    streamed kernel also at small thread counts (so short pairs span
-    several segments and tiles), equal the plain scan on the CPU and the
-    native scorer bit for bit."""
+    """Every K1 variant that takes the width, and the streamed kernel also
+    at small thread counts (so short pairs span several tiles), equal the
+    plain scan on the CPU and the native scorer bit for bit."""
     batch, params = CASES[case]()
     trans = (port.AlignmentParams.from_list(params) if params
              else port.AlignmentParams()).as_array()
@@ -194,7 +192,6 @@ def test_cuda_kernels_bit_identical(cuda_device, case):
     outs = [pairhmm_cuda.pairhmm_batch(*g), port.pairhmm_scan(*g)]
     outs += [fn(*g) for fn in k1_variants(batch[2].shape[1]).values()]
     for threads in (None, 32, 64):
-        outs.append(pairhmm_cuda.pairhmm_resident_smem(*g, threads=threads))
         outs.append(pairhmm_cuda.pairhmm_streamed(*g, threads=threads))
     # the cluster kernel by default, and with many narrow CTAs, so that
     # short pairs span several CTAs and some CTAs hold no real column
@@ -210,12 +207,12 @@ def test_cuda_kernels_bit_identical(cuda_device, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", [64, 65, 128, 129, 192, 193, 256, 257,
                                    384, 385, 512, 513, 768, 769, 1024, 1025,
-                                   4096, 4097, 8192, 8193])
+                                   4096, 4097, 8192])
 def test_k1_variants_at_width_edges(cuda_device, width):
     """At each register variant's edges (32*K and 32*K+1 columns, warp to
-    block, 8 to 16 columns a thread, block to smem) every K1 variant that
-    takes the width equals the plain scan and the native scorer, and each
-    launch is counted once under its variant's name."""
+    block, 8 to 16 columns a thread, the block variant's widest) every K1
+    variant that takes the width equals the plain scan and the native
+    scorer, and each launch is counted once under its variant's name."""
     batch = _width_batch(width)
     trans = port.AlignmentParams().as_array()
     want = native.pairhmm_batch_native(*batch, trans)
@@ -233,25 +230,19 @@ def test_k1_variants_at_width_edges(cuda_device, width):
 @pytest.mark.gpu
 def test_cuda_routing(cuda_device, monkeypatch):
     """pairhmm_batch sends a width to K1's warp or block variant up to
-    BLOCK_MAX_WIDTH, to the smem variant up to SMEM_MAX_WIDTH (where it
-    fits), to K2's cluster kernel up to CLUSTER_MAX_WIDTH and to the
+    BLOCK_MAX_WIDTH, to K2's cluster kernel up to CLUSTER_MAX_WIDTH and to the
     workspace kernel past that: each threshold lowered below the width
     hands the batch to the next kernel."""
     batch, _ = CASES["padded"]()
     trans = port.AlignmentParams().as_array()
     g = [torch.from_numpy(a).to(cuda_device) for a in (*batch, trans)]
-    width = batch[2].shape[1]
-    assert pairhmm_cuda.resident_fits(width, cuda_device)
-    below = width - 1
+    below = batch[2].shape[1] - 1
     for routing, kernel in (
             ({}, "pairhmm_resident_warp"),
             ({"WARP_MAX_WIDTH": below}, "pairhmm_resident_block"),
-            ({"BLOCK_MAX_WIDTH": below, "SMEM_MAX_WIDTH": width},
-             "pairhmm_resident_smem"),
-            ({"BLOCK_MAX_WIDTH": below, "SMEM_MAX_WIDTH": below},
-             "pairhmm_streamed_cluster"),
-            ({"BLOCK_MAX_WIDTH": below, "SMEM_MAX_WIDTH": below,
-              "CLUSTER_MAX_WIDTH": below}, "pairhmm_streamed")):
+            ({"BLOCK_MAX_WIDTH": below}, "pairhmm_streamed_cluster"),
+            ({"BLOCK_MAX_WIDTH": below, "CLUSTER_MAX_WIDTH": below},
+             "pairhmm_streamed")):
         for k, v in routing.items():
             monkeypatch.setattr(pairhmm_cuda, k, v)
         pairhmm_cuda.reset_launches()
@@ -605,21 +596,21 @@ def _tables_on(prep, device):
             for k in TABLE_KEYS]
 
 
-def _card_aligner(device, reference=False):
+def _card_aligner(device):
     from longtr_tpu_torch.pipeline.mode_b import ModeBAligner
-    return lambda hap, params=None: ModeBAligner(hap, params, device=device,
-                                                 reference=reference)
+    return lambda hap, params=None: ModeBAligner(hap, params, device=device)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(MODE_B_CASES))
 def test_mode_b_kernel_bit_identical(cuda_device, case, monkeypatch):
-    """Both row kernels on the host's tables, the warp kernel (the route
-    of these widths) and the block kernel with its rows on chip (default
-    and 32 threads, so threads own several columns) and on the workspace,
-    equal the plain rows on the card bit for bit."""
-    aligner, alns, seeds = mode_b_case(case, _card_aligner(cuda_device, True))
+    """Both row kernels on the plain artifact tables, the warp kernel (the
+    route of these widths) and the block kernel with its rows on chip
+    (default and 32 threads, so threads own several columns) and on the
+    workspace, equal the plain rows on the card bit for bit."""
+    aligner, alns, seeds = mode_b_case(case, _card_aligner(cuda_device))
     prep = aligner.score_reads_batch_prepare(alns, seeds)
+    prep["A_tab"] = _plain_artifacts(prep, prep["n_d"], torch.float32)
     g = _tables_on(prep, cuda_device)
     n_d = prep["n_d"]
     want = mode_b_device.mode_b_cols_plain(*g, n_d=n_d)
@@ -715,20 +706,29 @@ def _artifact_inputs_on(inp, device):
             for k in ARTIFACT_KEYS]
 
 
-def _artifact_kernel_vs_host(aligner, inp, n_d, P, device):
-    """The artifact kernel's float32 tables against the host numpy code's
-    (tolerance 0) and its float64 values within rtol 1e-12 (a last-bit
-    exp/log difference); returns the float64 tables on the card."""
+def _plain_artifacts(inp, n_d, dtype):
+    """The plain version's artifact tables of ``inp``, built on the CPU
+    (where tests/test_torch_mode_b_artifacts.py holds them to longtr_tpu's
+    bit for bit), as a numpy array."""
+    from longtr_tpu_torch.ops.mode_b_artifacts import mode_b_artifacts_plain
+    return mode_b_artifacts_plain(*_artifact_inputs_on(inp, "cpu"), n_d=n_d,
+                                  dtype=dtype).numpy()
+
+
+def _artifact_kernel_vs_plain(inp, n_d, device):
+    """The artifact kernel's float32 tables against the plain version's
+    float64 tables run on the CPU, cast (tolerance 0), and its float64
+    values within rtol 1e-12 of them (a last-bit exp/log difference);
+    returns the float64 tables on the card."""
     g = _artifact_inputs_on(inp, device)
-    host = aligner.host_artifact_tables(dict(inp, P=P, n_d=n_d,
-                                             dtype=np.float64))
+    plain = _plain_artifacts(inp, n_d, torch.float64)
     got32 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d)
     got64 = mode_b_cuda.mode_b_artifacts(*g, n_d=n_d, dtype=torch.float64)
     torch.cuda.synchronize()
-    assert got32.dtype == torch.float32 and got32.shape == host.shape
+    assert got32.dtype == torch.float32 and got32.shape == plain.shape
     np.testing.assert_array_equal(got32.cpu().numpy(),
-                                  host.astype(np.float32))
-    np.testing.assert_allclose(got64.cpu().numpy(), host, rtol=1e-12, atol=0)
+                                  plain.astype(np.float32))
+    np.testing.assert_allclose(got64.cpu().numpy(), plain, rtol=1e-12, atol=0)
     return got64.cpu().numpy()
 
 
@@ -741,11 +741,11 @@ WARP_PLANS = (None, 1, 300)
 @pytest.mark.parametrize("trial", range(12))
 def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
                                                monkeypatch):
-    """Random repeat blocks (homopolymers and not, shorter than the
-    largest deletion), empty and one-base segments, padding: the warp
-    kernel's tables equal the host's under each plan, with the region in
-    shared memory and on the workspace, and its float64 values are the
-    same under every plan."""
+    """Random repeat blocks (homopolymers and not, shorter than the largest
+    deletion), empty and one-base segments, padding: the warp kernel's tables
+    equal the plain version's under each plan, with the region in shared memory
+    and on the workspace, and its float64 values are the same under every
+    plan."""
     aligner, tables, ss, L_max, n_d = artifact_case(
         trial, _card_aligner(cuda_device))
     inp = aligner.artifact_inputs(tables, ss, L_max, n_d)
@@ -755,7 +755,7 @@ def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
     for columns in WARP_PLANS:
         if columns is not None:
             monkeypatch.setattr(mode_b_cuda, "ARTIFACT_BLOCK_COLUMNS", columns)
-        got = _artifact_kernel_vs_host(aligner, inp, n_d, P, cuda_device)
+        got = _artifact_kernel_vs_plain(inp, n_d, cuda_device)
         if first is None:
             first = got
         np.testing.assert_array_equal(got, first)
@@ -763,7 +763,7 @@ def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
     monkeypatch.setattr(mode_b_cuda, "smem_limit_bytes", 0)
     assert mode_b_cuda.artifact_plan(L_max, n_d, P, len(inp["int_log"]),
                                      cuda_device) == (1, False)
-    _artifact_kernel_vs_host(aligner, inp, n_d, P, cuda_device)
+    _artifact_kernel_vs_plain(inp, n_d, cuda_device)
     assert mode_b_cuda.launches == {
         "mode_b_artifacts": 2 * len(WARP_PLANS) + 2, "mode_b_cols": 0,
         "mode_b_cols_block": 0}
@@ -771,25 +771,29 @@ def test_mode_b_artifacts_kernel_random_blocks(cuda_device, trial,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(MODE_B_CASES))
-def test_mode_b_card_path_equals_host_tables(cuda_device, case):
+def test_mode_b_card_path_equals_plain_versions(cuda_device, case):
     """The default path on the card (both kernels) gives the LLs of the
-    reference path (host numpy tables, plain rows on the card) exactly,
-    and the artifact kernel's tables equal the host's, with its region in
-    shared memory and on the workspace."""
+    same aligner run on the plain versions (artifact tables built on the
+    CPU, plain rows on the card) exactly, and the artifact kernel's tables
+    equal the plain version's, with its region in shared memory and on the
+    workspace."""
+    from longtr_tpu_torch.pipeline import mode_b as port_mode_b
     card, alns, seeds = mode_b_case(case, _card_aligner(cuda_device))
-    ref, _a, _s = mode_b_case(case, _card_aligner(cuda_device, True))
     prep = card.score_reads_batch_prepare(alns, seeds)
     assert "A_tab" not in prep
-    _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"], cuda_device)
+    _artifact_kernel_vs_plain(prep, prep["n_d"], cuda_device)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(mode_b_cuda, "smem_limit_bytes", 0)
-        _artifact_kernel_vs_host(card, prep, prep["n_d"], prep["P"],
-                                 cuda_device)
+        _artifact_kernel_vs_plain(prep, prep["n_d"], cuda_device)
     mode_b_cuda.reset_launches()
     got = card.score_reads_batch_finish(prep)
     assert mode_b_cuda.launches == {"mode_b_artifacts": 1,
                                     "mode_b_cols": 1, "mode_b_cols_block": 0}
-    want = ref.score_reads_batch(alns, seeds)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_mode_b, "mode_b_cols", mode_b_device.mode_b_cols_plain)
+        mp.setattr(card, "artifact_tables", lambda p: torch.from_numpy(
+            _plain_artifacts(p, p["n_d"], torch.float32)).to(cuda_device))
+        want = card.score_reads_batch(alns, seeds)
     assert sum(mode_b_cuda.launches.values()) == 2
     np.testing.assert_array_equal(got, want)
 

@@ -2,13 +2,13 @@
 rows of ops.mode_b_device) against longtr_tpu's, on the CPU.
 
 * The host phase's table dict equals longtr_tpu's array for array, and
-  the artifact tables it builds on the reference path (``reference=True``,
-  numpy) equal longtr_tpu's wherever an element reads them (the port keeps
-  one table per (side, block, option, read) and an index per element,
-  where longtr_tpu copies a table per element); also at the mode-B cell's
-  scale (``hp_mix_scale``).  Its array operations give every key, dtype
-  and value of the loop over bases and (read, config, side) rows they
-  replace, kept at the end of this file as the oracle.
+  the artifact tables the finish phase builds from it (on the CPU, the plain
+  torch version) equal longtr_tpu's wherever an element reads them (the port
+  keeps one table per (side, block, option, read) and an index per element,
+  where longtr_tpu copies a table per element); also at the mode-B cell's scale
+  (``hp_mix_scale``).  Its array operations give every key, dtype and value of
+  the loop over bases and (read, config, side) rows they replace, kept at the
+  end of this file as the oracle.
 * float64: the plain rows equal the host numpy transcription
   (``_align_short``, itself held to HapAligner.cpp) on every real row,
   tolerance 0, and the marginalized LLs equal both the host ``score_read``
@@ -22,9 +22,9 @@ rows of ops.mode_b_device) against longtr_tpu's, on the CPU.
   differ in the last bit on ~10% of inputs.
 
 The fixtures live in tests/test_torch_cuda.py, whose `gpu` tests hold the
-CUDA kernels to the plain versions and the host tables bit for bit on a
-card; tests/test_torch_mode_b_artifacts.py holds the plain artifact tables
-to longtr_tpu's table code.
+CUDA kernels to the plain versions bit for bit on a card;
+tests/test_torch_mode_b_artifacts.py holds the plain artifact tables to
+longtr_tpu's table code.
 """
 
 import functools
@@ -84,6 +84,15 @@ def per_element_tables(prep):
     return prep["A_tab"][prep["tab"]]
 
 
+def prepare_with_tables(aligner, alns, seeds, dtype):
+    """The host phase's dict with the artifact tables the finish phase
+    builds from it (``artifact_tables``: on the CPU the plain version) as
+    ``A_tab``, in numpy."""
+    prep = aligner.score_reads_batch_prepare(alns, seeds, dtype)
+    prep["A_tab"] = aligner.artifact_tables(prep).numpy()
+    return prep
+
+
 def _jax_cols(prep):
     args = [per_element_tables(prep) if k == "A_tab" else prep[k]
             for k in TABLE_KEYS if k != "tab"]
@@ -138,12 +147,11 @@ def prepare_case(name, aligner_cls, cls=None):
 
 @pytest.mark.parametrize("case", PREPARE_CASES)
 def test_prepare_tables_equal_jax(case):
-    port, alns, seeds = prepare_case(
-        case, functools.partial(ModeBAligner, reference=True))
+    port, alns, seeds = prepare_case(case, ModeBAligner)
     jaxa, jalns, jseeds = prepare_case(case, JaxAligner, jax_classes())
     assert jseeds == seeds
     for dtype in (np.float32, np.float64):
-        got = port.score_reads_batch_prepare(alns, seeds, dtype)
+        got = prepare_with_tables(port, alns, seeds, dtype)
         want = jaxa.score_reads_batch_prepare(jalns, jseeds, dtype)
         assert set(want) - set(got) == {"A"}
         for k, v in want.items():
@@ -162,9 +170,8 @@ def test_prepare_tables_equal_jax(case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_mode_b_cols_f64_exact(case):
-    aligner, alns, seeds = mode_b_case(
-        case, functools.partial(ModeBAligner, reference=True))
-    prep = aligner.score_reads_batch_prepare(alns, seeds, np.float64)
+    aligner, alns, seeds = mode_b_case(case, ModeBAligner)
+    prep = prepare_with_tables(aligner, alns, seeds, np.float64)
     cols = _port_cols(prep)
     assert cols.dtype == np.float64
     # every real (read, config, side) element's rows == the host matrices'
@@ -440,8 +447,6 @@ def prepare_per_row(aligner, alns, seeds, dtype=np.float32):
                 sides=sides, elem=elem, lprob=lprob, P=P, K=K,
                 elements_real=elements_real,
                 elements_launched=B_pad * L_max * R_max * n_d, **art)
-    if aligner.reference:
-        prep["A_tab"] = aligner.host_artifact_tables(prep)
     return prep
 
 

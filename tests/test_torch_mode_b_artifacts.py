@@ -11,7 +11,7 @@ table code, on the CPU.
   largest deletion) with segments that are empty, one base long and
   padded, and on the mode-B fixtures of tests/test_torch_mode_b.py.
 * The finish path on CPU tensors (plain tables, plain rows) gives the LLs
-  of the host-table path (numpy tables, plain rows) exactly.
+  of the same path run on longtr_tpu's tables exactly.
 * A numpy model of the CUDA warp kernel's work split
   (``csrc/mode_b_artifacts.cu::mode_b_artifacts_warp_kernel``: a block a
   table and G segments, the segments staged, one valid offset a thread
@@ -20,8 +20,8 @@ table code, on the CPU.
   it holds with a per-lane exit) gives the plain tables and longtr_tpu's
   at tolerance 0 in float64.
 
-tests/test_torch_cuda.py holds the CUDA kernels to the host tables on a
-card.
+tests/test_torch_cuda.py holds the CUDA kernels to the plain versions on
+a card.
 """
 
 import functools
@@ -154,15 +154,13 @@ def test_artifact_inputs_describe_the_aligners():
 @pytest.mark.parametrize("case", CASES)
 def test_prepared_tables_equal_host_and_jax(case):
     """On the mode-B fixtures: the plain tables of a prepared batch equal
-    the host numpy tables (both dtypes, exactly) and, where an element
-    reads them, longtr_tpu's."""
+    longtr_tpu's where an element reads them, in both dtypes, exactly."""
     port, alns, seeds = mode_b_case(case, ModeBAligner)
     jaxa, jalns, jseeds = mode_b_case(case, JaxAligner, jax_classes())
     for dtype in (np.float32, np.float64):
         prep = port.score_reads_batch_prepare(alns, seeds, dtype)
         assert "A_tab" not in prep
         got = port.artifact_tables(prep).numpy()
-        np.testing.assert_array_equal(got, port.host_artifact_tables(prep))
         want = jaxa.score_reads_batch_prepare(jalns, jseeds, dtype)["A"]
         mine = per_element_tables(dict(prep, A_tab=got))
         for (p, k, side), b in prep["elem"].items():
@@ -170,22 +168,41 @@ def test_prepared_tables_equal_host_and_jax(case):
             np.testing.assert_array_equal(mine[b, :n_s], want[b, :n_s])
 
 
+def jax_tables_as_rows(prep, want):
+    """longtr_tpu's per-element tables ``want`` (B, S, n_d, L) laid into
+    the port's table rows (T * P, n_d, L) through ``prep["tab"]``; every
+    row is read by some element, and elements that share a row agree."""
+    rows = np.full((len(prep["tables"]) * prep["P"],) + want.shape[2:],
+                   np.nan, dtype=want.dtype)
+    for (p, k, side), b in prep["elem"].items():
+        for s_i in range(len(prep["sides"][k][side][3])):
+            r = prep["tab"][b, s_i]
+            if not np.isnan(rows[r]).all():
+                np.testing.assert_array_equal(rows[r], want[b, s_i])
+            rows[r] = want[b, s_i]
+    assert not np.isnan(rows).any()
+    return rows
+
+
 @pytest.mark.parametrize("case", CASES)
-def test_finish_on_cpu_equals_host_table_path(case):
-    """Plain tables and plain rows give the LLs of numpy tables and plain
-    rows exactly, in float32 and float64, and count the elements on the
-    CPU route."""
+def test_finish_on_cpu_equals_jax_table_path(case, monkeypatch):
+    """Plain tables and plain rows give the LLs of longtr_tpu's tables and
+    plain rows exactly, in float32 and float64, and count the elements on
+    the CPU route."""
     port, alns, seeds = mode_b_case(case, ModeBAligner)
-    ref, _a, _s = mode_b_case(case, functools.partial(ModeBAligner,
-                                                      reference=True))
+    jaxa, jalns, jseeds = mode_b_case(case, JaxAligner, jax_classes())
     for dtype in (np.float32, np.float64):
         before = dict(mode_b_device.mode_b_elements_scored)
         got = port.score_reads_batch(alns, seeds, dtype)
         moved = {k: v - before[k]
                  for k, v in mode_b_device.mode_b_elements_scored.items()}
         assert moved["cpu"] > 0 and moved["cuda"] == 0
-        np.testing.assert_array_equal(got, ref.score_reads_batch(alns, seeds,
-                                                                 dtype))
+        want = jaxa.score_reads_batch_prepare(jalns, jseeds, dtype)["A"]
+        monkeypatch.setattr(port, "artifact_tables", lambda prep: (
+            torch.from_numpy(jax_tables_as_rows(prep, want))))
+        np.testing.assert_array_equal(
+            got, port.score_reads_batch(alns, seeds, dtype))
+        monkeypatch.undo()
 
 
 def test_cpu_artifacts_route_to_plain():
@@ -418,8 +435,8 @@ def test_warp_kernel_model_equals_plain_and_jax(trial):
 @pytest.mark.parametrize("case", CASES)
 def test_warp_kernel_model_on_fixtures(case):
     """On the mode-B fixtures: the warp kernel's model equals the plain
-    tables and the host numpy builder's at tolerance 0 in float64, and
-    longtr_tpu's per-element tables where an element reads them."""
+    tables at tolerance 0 in float64, and longtr_tpu's per-element tables
+    where an element reads them."""
     port, alns, seeds = mode_b_case(case, ModeBAligner)
     jaxa, jalns, jseeds = mode_b_case(case, JaxAligner, jax_classes())
     prep = port.score_reads_batch_prepare(alns, seeds, np.float64)
@@ -428,7 +445,6 @@ def test_warp_kernel_model_on_fixtures(case):
                               _default_segments(prep["seg_codes"].shape[2],
                                                 P))
     np.testing.assert_array_equal(got, _plain(prep, n_d, torch.float64))
-    np.testing.assert_array_equal(got, port.host_artifact_tables(prep))
     want = jaxa.score_reads_batch_prepare(jalns, jseeds, np.float64)["A"]
     mine = per_element_tables(dict(prep, A_tab=got))
     for (p, k, side), b in prep["elem"].items():

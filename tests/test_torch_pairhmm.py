@@ -154,7 +154,6 @@ def test_wrappers_take_plain_version_on_cpu():
     for fn in (pairhmm_cuda.pairhmm_resident,
                pairhmm_cuda.pairhmm_resident_warp,
                pairhmm_cuda.pairhmm_resident_block,
-               pairhmm_cuda.pairhmm_resident_smem,
                pairhmm_cuda.pairhmm_streamed_cluster,
                pairhmm_cuda.pairhmm_streamed, pairhmm_cuda.pairhmm_batch):
         assert np.array_equal(fn(*t, trans).numpy(), got)
@@ -163,7 +162,6 @@ def test_wrappers_take_plain_version_on_cpu():
     assert np.array_equal(port.PairHMM(tp)(*t).numpy(), got)
     assert pairhmm_cuda.launches == {"pairhmm_resident_warp": 0,
                                      "pairhmm_resident_block": 0,
-                                     "pairhmm_resident_smem": 0,
                                      "pairhmm_streamed_cluster": 0,
                                      "pairhmm_streamed": 0}
 
@@ -200,7 +198,6 @@ def test_wrapper_checks_refuse_bad_tensors():
     for fn in (pairhmm_cuda.pairhmm_resident,
                pairhmm_cuda.pairhmm_resident_warp,
                pairhmm_cuda.pairhmm_resident_block,
-               pairhmm_cuda.pairhmm_resident_smem,
                pairhmm_cuda.pairhmm_streamed_cluster,
                pairhmm_cuda.pairhmm_streamed):
         with pytest.raises(ValueError, match="CUDA tensors"):
