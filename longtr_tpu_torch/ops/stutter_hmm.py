@@ -62,24 +62,24 @@ def fast_lse(vals) -> float:
 
 
 def fast_lse_cols(entries) -> np.ndarray:
-    """Column-wise fast_lse over a list of equal-length entry vectors.
+    """Column-wise fast_lse over an (n_entries, N) array or a list of
+    equal-length entry vectors.
 
     Bit-identical per column to calling :func:`fast_lse` on that column's
-    entries: terms accumulate sequentially in entry order, dropped terms
-    contribute an exact +0.0.
+    entries: terms accumulate sequentially in entry order (numpy's cumsum
+    adds in order), dropped terms contribute an exact +0.0, so a column
+    padded with trailing -inf entries gives the bits of its real ones.
     """
-    E = np.stack(entries)                          # (n_entries, N)
+    E = np.asarray(entries, dtype=np.float64)      # (n_entries, N)
     from longtr_tpu_torch.utils import mathops
     if mathops.ref_fidelity():
         from longtr_tpu_torch.utils import fastapprox
         return fastapprox.fast_log_sum_exp_cols(E)
     m = E.max(axis=0)
     with np.errstate(divide="ignore", invalid="ignore"):
-        total = np.zeros(E.shape[1])
-        for row in E:
-            d = row - m
-            total = total + np.where(d > LOG_THRESH, np.exp(d), 0.0)
-        out = m + np.log(total)
+        d = E - m
+        kept = np.where(d > LOG_THRESH, np.exp(d), 0.0)
+        out = m + np.log(np.cumsum(kept, axis=0)[-1])
     return np.where(np.isfinite(m), out, m)
 
 

@@ -2,8 +2,9 @@
 
 Port of :mod:`longtr_tpu.pipeline.mode_b`, which cannot be imported
 without JAX.  The host code (seeds, row tables, the f64 host transcription
-``score_read`` and the f64 seed marginalization) is the JAX package's,
-line for line.  The artifact tables, which the JAX package builds on the
+``score_read`` and its seed marginalization ``compute_aln_logprob``) is the
+JAX package's, line for line; the batch marginalizes all of a locus's
+reads in one array pass, bit for bit that walk's.  The artifact tables, which the JAX package builds on the
 host, are built on the device: the host phase hands over the reads' bytes
 and the (block, option) descriptors, and the device phase runs
 :func:`~longtr_tpu_torch.ops.mode_b_cuda.mode_b_artifacts` and then
@@ -34,7 +35,8 @@ import torch
 
 from longtr_tpu_torch.device import select_device
 from longtr_tpu_torch.ops.mode_b_artifacts import prefix_doubles
-from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE, MIN_SEED_DIST, StutterAligner, fast_lse
+from longtr_tpu_torch.ops.stutter_hmm import (IMPOSSIBLE, MIN_SEED_DIST, StutterAligner,
+                                              fast_lse, fast_lse_cols)
 from longtr_tpu_torch.utils.base_quality import log_prob_correct, log_prob_error
 from longtr_tpu_torch.utils.mathops import int_log
 from longtr_tpu_torch.utils.timers import span
@@ -632,21 +634,53 @@ class ModeBAligner:
             cols = cols.cpu().numpy().astype(np.float64)
 
         with span("Mode B marginalize"):
-            alns, seeds, segs = prep["alns"], prep["seeds"], prep["segs"]
-            configs, sides, elem = prep["configs"], prep["sides"], prep["elem"]
-            lprob = prep["lprob"]
-            out = np.empty((prep["P"], prep["K"]))
-            for p, aln in enumerate(alns):
-                seq = aln.sequence
-                _, blw, blc, _quals = segs[p]
-                s = seeds[p]
-                for k, config in enumerate(configs):
-                    fw_seqs = sides[k][2]
-                    out[p, k] = self.compute_aln_logprob(
-                        len(seq), s, seq[s], blw[s], blc[s],
-                        cols[elem[(p, k, 0)]], lprob[p, 0],
-                        cols[elem[(p, k, 1)]], lprob[p, 1], fw_seqs)
-        return out
+            return self._marginalize(prep, cols)
+
+    def _marginalize(self, prep, cols):
+        """:meth:`compute_aln_logprob` of every (read, config) at once: the
+        (P, K) LLs from the row DP's last columns ``cols``.
+
+        A config's seed entries depend on its forward row table alone: the
+        two boundary seeds, then each flank row 1 <= h <= hs - 2 (kind 0
+        or 1), whose left part ends at row h - 1 of the forward column and
+        right part at row hs - 2 - h of the reversed one.  The entries are
+        gathered into (n_max, P, K) with the reference walk's additions in
+        its order, a config with fewer entries padded with trailing -inf
+        (an exact +0.0 in the sum), and one column log-sum-exp takes them
+        all."""
+        P, K, sides = prep["P"], prep["K"], prep["sides"]
+        segs, seeds = prep["segs"], prep["seeds"]
+        seed_char = np.array([ord(segs[p][0][s]) for p, s in enumerate(seeds)])
+        blw = np.array([segs[p][1][s] for p, s in enumerate(seeds)])
+        blc = np.array([segs[p][2][s] for p, s in enumerate(seeds)])
+        per_config = []
+        for fw, _rv, fw_seqs in sides:
+            hapchar, kind, hs = fw[0], fw[1], fw[4]
+            h = 1 + np.flatnonzero(kind[1:hs - 1] <= 1)
+            # each entry's character, its first term's forward row, and its
+            # second term's side and row; the boundary seeds' first terms
+            # are the whole-segment log-probs, set below
+            per_config.append((
+                np.r_[ord(fw_seqs[0][0]), ord(fw_seqs[-1][-1]), hapchar[h]],
+                np.r_[0, 0, h - 1], np.r_[1, 0, np.ones_like(h)],
+                np.r_[hs - 2, hs - 2, hs - 2 - h]))
+        n_max = max(len(e[0]) for e in per_config)
+        char, row1, side2, row2 = ent = np.zeros((4, n_max, K), dtype=np.int64)
+        valid = np.zeros((n_max, K), dtype=bool)
+        for k, e in enumerate(per_config):
+            ent[:, :len(e[0]), k] = e
+            valid[:len(e[0]), k] = True
+        cols = cols[:P * K * 2].reshape(P, K, 2, -1)      # row b = (p, k, side)
+        p_i = np.arange(P)[:, None]
+        k_i = np.arange(K)
+        term = np.where(seed_char[:, None] == char[:, None, :],
+                        blc[:, None], blw[:, None])
+        a1 = cols[p_i, k_i, 0, row1[:, None, :]]
+        a1[:2] = prep["lprob"].T[:, :, None]
+        a2 = cols[p_i, k_i, side2[:, None, :], row2[:, None, :]]
+        prior = -int_log(self.num_seeds)
+        E = np.where(valid[:, None, :], prior + term + a1 + a2, -np.inf)
+        return fast_lse_cols(E.reshape(n_max, P * K)).reshape(P, K)
 
     def artifact_tables(self, prep):
         """``prep``'s artifact tables built on ``self.device`` (the CUDA

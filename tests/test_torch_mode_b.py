@@ -27,6 +27,7 @@ tests/test_torch_mode_b_artifacts.py holds the plain artifact tables to
 longtr_tpu's table code.
 """
 
+import copy
 import functools
 import os
 import sys
@@ -299,6 +300,107 @@ def test_score_read_prefers_matching_allele():
         assert h2a[int(np.argmax(scores))] == allele
         batch = aligner.score_reads_batch([aln], [seed], np.float64)
         np.testing.assert_array_equal(batch[0], scores)
+
+
+def with_seed_chars(aligner, alns, seeds):
+    """The case's reads with the seed base of read 0 set to the haplotype's
+    first base, of read 1 to its last and of read 2 to a base that is
+    neither; the others keep theirs.  The row DP never reads a seed base,
+    only the marginalization does."""
+    fw = aligner.fw_blocks
+    first, last = fw[0].get_seq(0)[0], fw[-1].get_seq(0)[-1]
+    forced = [first, last, next(c for c in "ACGT" if c not in (first, last))]
+    out = []
+    for p, (aln, s) in enumerate(zip(alns, seeds)):
+        aln = copy.copy(aln)
+        if p < len(forced):
+            aln.sequence = aln.sequence[:s] + forced[p] + aln.sequence[s + 1:]
+        out.append(aln)
+    return out, (first, last)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", CASES)
+def test_marginalize_equals_the_per_read_walk(case, dtype, monkeypatch):
+    """The finish phase's one array pass over a locus's (read, config)
+    seed entries gives, bit for bit, ``compute_aln_logprob`` called per
+    read and config on the same row DP columns: configs of unequal
+    haplotype sizes, seed bases equal to the boundary bases and to
+    neither."""
+    aligner, alns, seeds = mode_b_case(case, ModeBAligner)
+    alns, (first, last) = with_seed_chars(aligner, alns, seeds)
+    prep = aligner.score_reads_batch_prepare(alns, seeds, dtype)
+    sizes = {fw[4] for fw, _rv, _seqs in prep["sides"]}
+    assert len(sizes) == prep["K"] > 1
+    chars = [aln.sequence[s] for aln, s in zip(alns, seeds)]
+    assert chars[0] == first and chars[1] == last
+    assert chars[2] not in (first, last)
+    seen = []
+    row_dp = port_mode_b.mode_b_cols
+    monkeypatch.setattr(port_mode_b, "mode_b_cols",
+                        lambda *a, **kw: seen.append(row_dp(*a, **kw))
+                        or seen[-1])
+    got = aligner.score_reads_batch_finish(prep)
+    cols = seen[0].numpy().astype(np.float64)
+    want = np.empty((prep["P"], prep["K"]))
+    for p, (aln, s) in enumerate(zip(alns, seeds)):
+        seq, blw, blc, _q = prep["segs"][p]
+        for k in range(prep["K"]):
+            want[p, k] = aligner.compute_aln_logprob(
+                len(seq), s, seq[s], blw[s], blc[s],
+                cols[prep["elem"][(p, k, 0)]], prep["lprob"][p, 0],
+                cols[prep["elem"][(p, k, 1)]], prep["lprob"][p, 1],
+                prep["sides"][k][2])
+    assert got.dtype == np.float64 and np.isfinite(got).all()
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+def lse_columns(name):
+    """(entries, real entries a column) of a case of
+    test_fast_lse_cols_equals_fast_lse: random columns around the named
+    one, which is column 3."""
+    from longtr_tpu_torch.ops.stutter_hmm import IMPOSSIBLE
+    from longtr_tpu_torch.utils.mathops import LOG_THRESH
+    rng = np.random.default_rng(23)
+    E = rng.uniform(-12, 0, size=(9, 6))
+    n = np.full(6, 9)
+    if name == "impossible":
+        E[:, 3] = IMPOSSIBLE
+    elif name == "minus_inf":
+        E[:, 3] = -np.inf
+    elif name == "trailing_padding":
+        n[3:] = (4, 2, 7)
+        E[np.arange(9)[:, None] >= n] = -np.inf
+        E[1, 4] = IMPOSSIBLE
+    else:                 # terms above, at (dropped: > is strict) and below
+        E[:, 3] = LOG_THRESH * np.array([0, .5, 1, .99, 1.5, 3, 1, 1.01, 50])
+    return E, n
+
+
+@pytest.mark.parametrize("fidelity", [False, True])
+@pytest.mark.parametrize("name", ["impossible", "minus_inf",
+                                  "trailing_padding", "below_thresh"])
+def test_fast_lse_cols_equals_fast_lse(name, fidelity):
+    """The column log-sum-exp on an (entries, columns) array gives each
+    column the bits of ``fast_lse`` on that column's real entries, with
+    trailing -inf padding past them, in both math modes."""
+    import warnings
+
+    from longtr_tpu_torch.ops.stutter_hmm import fast_lse, fast_lse_cols
+    from longtr_tpu_torch.utils import mathops
+    E, n = lse_columns(name)
+    mathops.set_ref_fidelity(fidelity)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = fast_lse_cols(E)
+            want = np.array([fast_lse(E[:n[c], c]) for c in range(E.shape[1])])
+            as_list = fast_lse_cols(list(E))
+    finally:
+        mathops.set_ref_fidelity(False)
+    assert got.dtype == np.float64 and got.shape == (E.shape[1],)
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+    assert np.array_equal(as_list.view(np.int64), want.view(np.int64))
 
 
 # ---------------------------------------------------------------------------
